@@ -4,6 +4,16 @@
 `decode_attention` — single-token decode against a KV cache with dynamic
                      length: split-K partials merged with the FLASH-D
                      sigmoid blend (plain PyTorch).
+`decode_attention_paged` — the same against a paged pool through a block
+                     table (`gather_pages`, then `decode_attention`).
+`varlen_attention` — packed rows of many sequences (prefill chunks and
+                     decode tokens side by side) against a paged pool; the
+                     K4 kernel on the card, a gather + one softmax here.
+
+The plain paged paths zero every gathered position past a sequence's
+length before they use it, so table slots past the live pages (the
+engine points them at the garbage page 0, which may hold anything) can
+never reach a result — the kernels never read them at all.
 
 impl ∈ {'flashd', 'flashd_gpu', 'flashd_plain', 'naive'}:
   flashd        — a CUDA tensor launches the K1 kernel, a CPU tensor takes
@@ -29,7 +39,16 @@ import torch
 
 from repro_torch.core.blockwise import NEG_INF, MaskSpec, merge_partials
 
-__all__ = ["flash_attention", "decode_attention", "uses_kernel", "MaskSpec", "IMPLS"]
+__all__ = [
+    "flash_attention",
+    "decode_attention",
+    "decode_attention_paged",
+    "gather_pages",
+    "varlen_attention",
+    "uses_kernel",
+    "MaskSpec",
+    "IMPLS",
+]
 
 IMPLS = ("flashd", "flashd_gpu", "flashd_plain", "naive")
 
@@ -171,3 +190,144 @@ def decode_attention(
         o_p = o_p / torch.clamp(l_p, min=tiny)[..., None]
         o, _ = merge_partials(o_p, lam_p)  # FLASH-D split-K merge
     return o.reshape(b, 1, hq, -1).to(q.dtype)
+
+
+def gather_pages(pages: torch.Tensor, block_tbl: torch.Tensor,
+                 scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[P, page, Hkv, ·] pool + [B, N] table → contiguous [B, N·page, Hkv, ·].
+
+    With `scales` ([P, Hkv] f32, a quantized pool's per-(page, head)
+    side-band) the gathered view is dequantized to f32."""
+    b, n = block_tbl.shape
+    _, page, hkv = pages.shape[:3]
+    tbl = block_tbl.long()
+    out = pages[tbl]  # [B, N, page, Hkv, ·]
+    if scales is not None:
+        out = out.float() * scales[tbl][:, :, None, :, None]
+    return out.reshape(b, n * page, hkv, pages.shape[-1])
+
+
+def _zero_past(x: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """x [B, S, ...] with positions ≥ length[b] set to 0 (dead table slots
+    may point at a page holding anything, NaN included)."""
+    keep = torch.arange(x.shape[1], device=x.device)[None, :] < length.reshape(-1, 1)
+    keep = keep.reshape(keep.shape + (1,) * (x.ndim - 2))
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def decode_attention_paged(
+    q: torch.Tensor,  # [B, 1, Hq, d]
+    k_pages: torch.Tensor,  # [P, page, Hkv, d] — global page pool
+    v_pages: torch.Tensor,  # [P, page, Hkv, dv]
+    block_tbl: torch.Tensor,  # [B, N] int per-sequence block tables
+    cache_len: torch.Tensor,  # [B]
+    *,
+    scale: Optional[float] = None,
+    window: int = 0,
+    chunk: int = 0,
+    n_splits: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — quantized pool
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Single-step decode against a paged KV cache in plain PyTorch: gather
+    the pages into a contiguous [B, N·page, Hkv, ·] view (dequantized with
+    the scales), then `decode_attention`."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    b = q.shape[0]
+    cache_len = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(b)
+    k_cache = _zero_past(gather_pages(k_pages, block_tbl, scales=k_scale), cache_len)
+    v_cache = _zero_past(gather_pages(v_pages, block_tbl, scales=v_scale), cache_len)
+    return decode_attention(q, k_cache, v_cache, cache_len, scale=scale, window=window,
+                            chunk=chunk, n_splits=n_splits)
+
+
+def varlen_attention(
+    q: torch.Tensor,  # [T, Hq, d] — packed query rows from many sequences
+    k_pages: torch.Tensor,  # [P, page, Hkv, d] — global page pool
+    v_pages: torch.Tensor,  # [P, page, Hkv, dv]
+    block_tbl: torch.Tensor,  # [B, N] int per-sequence block tables
+    seq_ids: torch.Tensor,  # [T] owning sequence per row (−1 = padding)
+    q_pos: torch.Tensor,  # [T] absolute KV position per row (−1 = padding)
+    kv_len: torch.Tensor,  # [B] visible KV length per sequence
+    *,
+    scale: Optional[float] = None,
+    window: int = 0,
+    chunk: int = 0,
+    impl: str = "flashd",
+    block_q: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — quantized pool
+    v_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32
+) -> torch.Tensor:
+    """Packed varlen attention over a paged KV cache → o [T, Hq, dv].
+
+    Every row attends its own sequence's pages under a causal (× window /
+    chunk) mask at its absolute position; padding rows (seq_ids < 0 or
+    q_pos < 0) return exact zeros.
+
+    On the kernel path (`uses_kernel(impl, q)`) the rows are padded to a
+    `block_q` multiple and K4 runs; segment ALIGNMENT to `block_q` is the
+    caller's contract (the engine's packer provides it). block_q=None
+    takes `tuning.choose_varlen_blocks`, as the reference does. Otherwise
+    this is the reference's plain mirror: each row's sequence is gathered
+    to a contiguous view and attended with one softmax."""
+    t, hq, d = q.shape
+    _, page, hkv, dv = v_pages.shape
+    g = hq // hkv
+    if scale is None:
+        scale = float(1.0 / (d ** 0.5))
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    dev = q.device
+    seq_ids = torch.as_tensor(seq_ids, device=dev).long()
+    q_pos = torch.as_tensor(q_pos, device=dev).long()
+    kv_len = torch.as_tensor(kv_len, device=dev).reshape(-1).long()
+
+    if uses_kernel(impl, q):
+        from repro_torch.kernels import ops  # lazy: avoid import cycle
+
+        if block_q is None:
+            from repro_torch.kernels.tuning import choose_varlen_blocks
+
+            block_q = choose_varlen_blocks(
+                t, d, dv, group=g, page=page,
+                kv_itemsize=k_pages.element_size() if k_scale is not None else 4,
+            ).block_q
+        pad = (-t) % block_q
+        if pad:
+            q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+            seq_ids = torch.nn.functional.pad(seq_ids, (0, pad), value=-1)
+            q_pos = torch.nn.functional.pad(q_pos, (0, pad), value=-1)
+        o = ops.get_op("varlen")(
+            q, k_pages, v_pages, block_tbl, seq_ids, q_pos, kv_len,
+            scale=scale, window=window, chunk=chunk, block_q=block_q,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+        return o[:t]
+
+    sid = torch.clamp(seq_ids, min=0)
+    k_cache = _zero_past(gather_pages(k_pages, block_tbl, scales=k_scale), kv_len)
+    v_cache = _zero_past(gather_pages(v_pages, block_tbl, scales=v_scale), kv_len)
+    s_tot = k_cache.shape[1]
+    kt = k_cache[sid].float()  # [T, S, Hkv, d]
+    vt = v_cache[sid].float()
+    qf = q.float().reshape(t, hkv, g, d)
+
+    pos = torch.arange(s_tot, device=dev)
+    keep = pos[None, :] < kv_len[sid][:, None]  # sequence boundary
+    keep &= pos[None, :] <= q_pos[:, None]  # causal at the row's position
+    keep &= (seq_ids >= 0)[:, None]
+    if window > 0:
+        keep &= q_pos[:, None] - pos[None, :] < window
+    if chunk > 0:
+        keep &= (torch.div(q_pos[:, None], chunk, rounding_mode="floor")
+                 == torch.div(pos[None, :], chunk, rounding_mode="floor"))
+
+    s = torch.einsum("thgd,tshd->thgs", qf, kt) * scale
+    s = torch.where(keep[:, None, None, :], s, NEG_INF)
+    lam = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lam[..., None])
+    # rows with no visible key (padding, empty segments) are ZERO
+    p = torch.where(keep[:, None, None, :], p, 0.0)
+    o = torch.einsum("thgs,tshd->thgd", p, vt)
+    return o.reshape(t, hq, dv).to(q.dtype)

@@ -1,5 +1,5 @@
 // Shared device helpers of the FLASH-D Hopper kernels (flashd_fwd.cu,
-// flashd_decode.cu). Everything is f32 arithmetic with the exact library
+// flashd_decode.cu, flashd_varlen.cu). Everything is f32 arithmetic with the exact library
 // functions (expf / logf / log1pf): the kernels are held to 5e-5 against
 // their plain PyTorch versions, so no --use_fast_math and no __expf.
 #pragma once
@@ -17,6 +17,7 @@ constexpr float F32_TINY = 1.17549435e-38f;  // jnp.finfo(float32).tiny
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(signed char x) { return (float)x; }  // int8 pool
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }

@@ -1,6 +1,7 @@
-// FLASH-D split-K decode for Hopper: the counterpart of the Pallas kernel
-// repro/kernels/flashd_decode.py::flashd_decode_pallas (_split_partial,
-// _lo_bound, _split_live, _merge_into_carry).
+// FLASH-D split-K decode for Hopper: the counterparts of the Pallas kernels
+// repro/kernels/flashd_decode.py::flashd_decode_pallas (K2: _split_partial,
+// _lo_bound, _split_live, _merge_into_carry) and ::flashd_decode_paged_pallas
+// (K3: _decode_paged_kernel).
 //
 // One query token per sequence attends a contiguous KV cache. On the TPU the
 // splits were a sequential grid axis with the (acc, Λ) carry in VMEM; here
@@ -22,6 +23,17 @@
 // bounds it. G = Hq/Hkv can be 1, which no tensor-core tile fits: the dot
 // products are f32 FMA on the CUDA cores. Each K row is read once for all G
 // heads of its group, and splits spread one sequence over many SMs.
+//
+// K3, the paged cache: the same two launches with one PAGE per split. K/V
+// live in a global pool [P, page, Hkv, d] and each sequence has a block
+// table [B, N]; the TPU resolved tbl[b, ip] in its DMA descriptors (scalar
+// prefetch), here the split CTA reads tbl[b, ip] itself — only when the
+// split is live, so table slots past the live range (the engine parks them
+// on the garbage page 0, which may hold anything) are never followed — and
+// offsets its K/V pointers to that physical page. The merge runs in page
+// order, the order of the TPU's fused carry. An int8 pool comes with one
+// f32 scale per (page, kv head); the tile is dequantized as it is loaded
+// (x·scale, the reference's order), before the scores.
 #include <cfloat>
 
 #include "flashd_common.cuh"
@@ -36,20 +48,24 @@ constexpr int G_MAX = 8;  // largest query group per kv head
 
 struct SplitArgs {
   const void* q;      // [B, Hq, d] view
-  const void* k;      // [B, Hkv, S_max, d] view
-  const void* v;      // [B, Hkv, S_max, dv] view
+  const void* k;      // contiguous: [B, Hkv, S_max, d] view; paged: pool [P, page, Hkv, d]
+  const void* v;      // the same for V
   const int* cache_len;  // [B]
   const int* start;      // [B] or null
   float* o_part;      // [P, B, Hq, dv]
   float* lam_part;    // [P, B, Hq]
   long long q_sb, q_sh;
-  long long k_sb, k_sh, k_ss;
+  long long k_sb, k_sh, k_ss;  // paged: k_sb is the pool's page stride
   long long v_sb, v_sh, v_ss;
   int B, Hq, Hkv, S_max, split, window, chunk;
   float scale;
+  const int* tbl;     // [B, N] block table (paged; split == page), or null
+  long long tbl_sb;
+  const float* ks;    // [P, Hkv] f32 scales of an int8 pool, or null
+  const float* vs;
 };
 
-template <typename T, int HD>
+template <typename TQ, typename TKV, int HD>
 __global__ void __launch_bounds__(NTHREADS) decode_split_kernel(SplitArgs a) {
   constexpr int NC = (HD + 31) / 32;
   extern __shared__ float smem[];
@@ -81,9 +97,24 @@ __global__ void __launch_bounds__(NTHREADS) decode_split_kernel(SplitArgs a) {
   const long long i1 = min(min(lo + a.split, cache_len), (long long)a.S_max);
   const int n = (int)max(i1 - i0, 0LL);
 
-  const T* qb = (const T*)a.q + b * a.q_sb + (long long)hk * G * a.q_sh;
-  const T* kb = (const T*)a.k + b * a.k_sb + hk * a.k_sh;
-  const T* vb = (const T*)a.v + b * a.v_sb + hk * a.v_sh;
+  const TQ* qb = (const TQ*)a.q + b * a.q_sb + (long long)hk * G * a.q_sh;
+  // kb / vb point at the split's position lo: row i0 + i is kb[(i0 + i − lo)·k_ss]
+  const TKV* kb;
+  const TKV* vb;
+  float ksc = 1.0f, vsc = 1.0f;
+  if (a.tbl != nullptr) {  // paged: this split is logical page ip
+    const long long pid = a.tbl[b * a.tbl_sb + ip];
+    kb = (const TKV*)a.k + pid * a.k_sb + hk * a.k_sh;
+    vb = (const TKV*)a.v + pid * a.v_sb + hk * a.v_sh;
+    if (a.ks != nullptr) {
+      ksc = a.ks[pid * a.Hkv + hk];
+      vsc = a.vs[pid * a.Hkv + hk];
+    }
+  } else {
+    kb = (const TKV*)a.k + b * a.k_sb + hk * a.k_sh + lo * a.k_ss;
+    vb = (const TKV*)a.v + b * a.v_sb + hk * a.v_sh + lo * a.v_ss;
+  }
+  const long long r0 = i0 - lo;  // first live row within the split
 
   float qr[G_MAX][NC];
 #pragma unroll
@@ -97,12 +128,12 @@ __global__ void __launch_bounds__(NTHREADS) decode_split_kernel(SplitArgs a) {
   // scores: one warp per cache position, lanes across the head dim; the K
   // row is read once for all G heads of the group
   for (int i = warp; i < n; i += NWARPS) {
-    const T* krow = kb + (i0 + i) * a.k_ss;
+    const TKV* krow = kb + (r0 + i) * a.k_ss;
     float kv[NC];
 #pragma unroll
     for (int j = 0; j < NC; ++j) {
       const int col = lane + 32 * j;
-      kv[j] = col < HD ? to_float(krow[col]) : 0.0f;
+      kv[j] = col < HD ? to_float(krow[col]) * ksc : 0.0f;
     }
 #pragma unroll
     for (int g = 0; g < G_MAX; ++g) {
@@ -144,7 +175,7 @@ __global__ void __launch_bounds__(NTHREADS) decode_split_kernel(SplitArgs a) {
 #pragma unroll
     for (int g = 0; g < G_MAX; ++g) acc[g] = 0.0f;
     for (int i = 0; i < n; ++i) {
-      const float vv = to_float(vb[(i0 + i) * a.v_ss + col]);
+      const float vv = to_float(vb[(r0 + i) * a.v_ss + col]) * vsc;
 #pragma unroll
       for (int g = 0; g < G_MAX; ++g)
         if (g < G) acc[g] = fmaf(sS[g * a.split + i], vv, acc[g]);
@@ -182,28 +213,49 @@ size_t split_smem_bytes(int G, int split) {
   return sizeof(float) * ((size_t)G * split + 2 * G);
 }
 
-template <typename T, int HD>
+template <typename TQ, typename TKV, int HD>
 cudaError_t launch_split(const SplitArgs& a, int n_splits, cudaStream_t stream) {
   const size_t bytes = split_smem_bytes(a.Hq / a.Hkv, a.split);
   if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<T, HD>,
+    cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<TQ, TKV, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
   const dim3 grid(n_splits, a.Hkv, a.B);
-  decode_split_kernel<T, HD><<<grid, NTHREADS, bytes, stream>>>(a);
+  decode_split_kernel<TQ, TKV, HD><<<grid, NTHREADS, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 cudaError_t dispatch_hd(int hd, const SplitArgs& a, int n_splits, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_split<T, 32>(a, n_splits, stream);
-    case 48: return launch_split<T, 48>(a, n_splits, stream);
-    case 64: return launch_split<T, 64>(a, n_splits, stream);
-    case 128: return launch_split<T, 128>(a, n_splits, stream);
+    case 32: return launch_split<TQ, TKV, 32>(a, n_splits, stream);
+    case 48: return launch_split<TQ, TKV, 48>(a, n_splits, stream);
+    case 64: return launch_split<TQ, TKV, 64>(a, n_splits, stream);
+    case 128: return launch_split<TQ, TKV, 128>(a, n_splits, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// dtype codes: 0 float32, 1 bfloat16, 2 int8 (K/V only)
+cudaError_t dispatch_types(int q_type, int kv_type, int hd, const SplitArgs& a, int n_splits,
+                           cudaStream_t s) {
+  if (q_type == 0 && kv_type == 0) return dispatch_hd<float, float>(hd, a, n_splits, s);
+  if (q_type == 1 && kv_type == 1)
+    return dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, n_splits, s);
+  if (q_type == 0 && kv_type == 2) return dispatch_hd<float, signed char>(hd, a, n_splits, s);
+  if (q_type == 1 && kv_type == 2)
+    return dispatch_hd<__nv_bfloat16, signed char>(hd, a, n_splits, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_merge(const float* o_part, const float* lam_part, void* o, float* lam_out,
+                         int P, int B, int Hq, int dv, cudaStream_t s) {
+  const int threads = ((dv + 31) / 32) * 32;
+  decode_merge_kernel<T><<<B * Hq, threads, 0, s>>>(o_part, lam_part, (T*)o, lam_out, P,
+                                                    B * Hq, dv);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -221,11 +273,10 @@ extern "C" int flashd_decode_split_launch(
   if (Hq % Hkv != 0 || Hq / Hkv > G_MAX || split < 1) return (int)cudaErrorInvalidValue;
   SplitArgs a{q, k, v, cache_len, start, o_part, lam_part,
               q_sb, q_sh, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-              B, Hq, Hkv, S_max, split, window, chunk, scale};
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = is_bf16 ? dispatch_hd<__nv_bfloat16>(hd, a, n_splits, s)
-                          : dispatch_hd<float>(hd, a, n_splits, s);
-  return (int)e;
+              B, Hq, Hkv, S_max, split, window, chunk, scale,
+              nullptr, 0, nullptr, nullptr};
+  const int t = is_bf16 ? 1 : 0;
+  return (int)dispatch_types(t, t, hd, a, n_splits, (cudaStream_t)stream);
 }
 
 // Launch 2: the in-order sigmoid merge into o [B, Hq, dv] (q's dtype) and,
@@ -235,13 +286,38 @@ extern "C" int flashd_decode_merge_launch(
     int P, int B, int Hq, int dv, int is_bf16, void* stream) {
   if (B == 0 || Hq == 0) return (int)cudaGetLastError();
   if (dv < 1 || dv > 1024) return (int)cudaErrorInvalidValue;
-  const int threads = ((dv + 31) / 32) * 32;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    decode_merge_kernel<__nv_bfloat16><<<B * Hq, threads, 0, s>>>(
-        o_part, lam_part, (__nv_bfloat16*)o, lam_out, P, B * Hq, dv);
-  else
-    decode_merge_kernel<float><<<B * Hq, threads, 0, s>>>(
-        o_part, lam_part, (float*)o, lam_out, P, B * Hq, dv);
-  return (int)cudaGetLastError();
+  return (int)(is_bf16 ? launch_merge<__nv_bfloat16>(o_part, lam_part, o, lam_out, P, B, Hq, dv, s)
+                       : launch_merge<float>(o_part, lam_part, o, lam_out, P, B, Hq, dv, s));
+}
+
+// K3: one-token decode through a block table — the split launch with one
+// page per split over pools [P, page, Hkv, d] (element strides k_sp, k_ss,
+// k_sh), then the in-page-order merge into o [B, Hq, dv] (q's dtype).
+// q_type / kv_type: 0 float32, 1 bfloat16, 2 int8 (then ks / vs [P, Hkv]
+// f32 are the per-(page, head) scales; null otherwise). o_part / lam_part
+// are scratch [N, B, Hq, dv] / [N, B, Hq].
+extern "C" int flashd_decode_paged_launch(
+    const void* q, const void* k_pages, const void* v_pages, const int* tbl,
+    const int* cache_len, const float* ks, const float* vs,
+    float* o_part, float* lam_part, void* o,
+    long long q_sb, long long q_sh,
+    long long k_sp, long long k_ss, long long k_sh,
+    long long v_sp, long long v_ss, long long v_sh, long long tbl_sb,
+    int B, int Hq, int Hkv, int n_tbl, int page, int hd, int q_type, int kv_type,
+    int window, int chunk, float scale, void* stream) {
+  if (B == 0 || Hq == 0) return (int)cudaGetLastError();
+  if (Hq % Hkv != 0 || Hq / Hkv > G_MAX || page < 1 || n_tbl < 1 || hd > 1024)
+    return (int)cudaErrorInvalidValue;
+  if ((kv_type == 2) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
+  SplitArgs a{q, k_pages, v_pages, cache_len, nullptr, o_part, lam_part,
+              q_sb, q_sh, k_sp, k_sh, k_ss, v_sp, v_sh, v_ss,
+              B, Hq, Hkv, n_tbl * page, page, window, chunk, scale,
+              tbl, tbl_sb, ks, vs};
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = dispatch_types(q_type, kv_type, hd, a, n_tbl, s);
+  if (e != cudaSuccess) return (int)e;
+  e = q_type == 1 ? launch_merge<__nv_bfloat16>(o_part, lam_part, o, nullptr, n_tbl, B, Hq, hd, s)
+                  : launch_merge<float>(o_part, lam_part, o, nullptr, n_tbl, B, Hq, hd, s);
+  return (int)e;
 }

@@ -1,11 +1,12 @@
-"""K2 — FLASH-D split-K decode on the H100, and its plain PyTorch version.
+"""K2 and K3 — FLASH-D split-K decode on the H100, contiguous and paged,
+and their plain PyTorch versions.
 
-Replaces the Pallas TPU kernel
+K2 replaces the Pallas TPU kernel
 `repro/kernels/flashd_decode.py::flashd_decode_pallas` (fused
 `_decode_fused_kernel`, unfused `_decode_unfused_kernel`, shared
-`_split_partial`, `_lo_bound`, `_split_live`, `_merge_into_carry`). The
-CUDA source is `csrc/flashd_decode.cu`. The paged variant (K3,
-`flashd_decode_paged_pallas`) is the next slice.
+`_split_partial`, `_lo_bound`, `_split_live`, `_merge_into_carry`). K3
+(`flashd_decode_paged`) replaces `flashd_decode_paged_pallas`
+(`_decode_paged_kernel`). Both live in `csrc/flashd_decode.cu`.
 
 Design. On the TPU the splits were the innermost sequential grid axis with
 the merge carry in VMEM. Here each call is two launches: parallel split
@@ -23,8 +24,19 @@ tile, so the dot products are f32 FMA; each K row is read once for all G
 heads of its group, and splits of `GPU_SPLIT` positions spread one long
 sequence over many SMs.
 
-`launches` counts wrapper calls that launched the kernel pair (split
-kernel, then the merge kernel when fused).
+K3 is the same kernel pair with one page per split: the split CTA reads
+its sequence's block table entry tbl[b, ip] itself (the TPU resolved it
+in the DMA descriptors) and reads that physical page of the pool
+[P, page, Hkv, d] by strides. A split past the sequence's live range
+neither reads its table slot nor touches the pool, so dead slots (page
+0 in the engine) are never read. The merge blends pages in order, as the
+TPU's fused carry did. An int8 pool with per-(page, head) f32 scales is
+dequantized in the tile, before the scores. Same bound as K2: the live
+KV bytes over memory bandwidth.
+
+`launches` counts K2 wrapper calls that launched the kernel pair (split
+kernel, then the merge kernel when fused); `paged_launches` counts K3
+wrapper calls (one C call: split and merge launches).
 """
 
 from __future__ import annotations
@@ -41,15 +53,19 @@ __all__ = [
     "flashd_decode",
     "flashd_decode_plain",
     "gpu_decode_splits",
+    "flashd_decode_paged",
+    "flashd_decode_paged_plain",
     "GPU_SPLIT",
     "MAX_GROUP",
     "launches",
+    "paged_launches",
 ]
 
 GPU_SPLIT = 128  # cache positions per split CTA when n_splits is not given
 MAX_GROUP = 8  # G_MAX in the source
 
 launches = 0
+paged_launches = 0
 _fns = None
 
 
@@ -150,7 +166,10 @@ def _launchers():
         merge_fn = lib.flashd_decode_merge_launch
         merge_fn.argtypes = [P] * 4 + [I] * 5 + [P]
         merge_fn.restype = I
-        _fns = (split_fn, merge_fn)
+        paged_fn = lib.flashd_decode_paged_launch
+        paged_fn.argtypes = [P] * 10 + [L] * 9 + [I] * 10 + [F, P]
+        paged_fn.restype = I
+        _fns = (split_fn, merge_fn, paged_fn)
     return _fns
 
 
@@ -200,7 +219,7 @@ def flashd_decode(
 
     o_part = torch.empty((n_splits, b, hq, dv), dtype=torch.float32, device=dev)
     lam_part = torch.empty((n_splits, b, hq), dtype=torch.float32, device=dev)
-    split_fn, merge_fn = _launchers()
+    split_fn, merge_fn, _ = _launchers()
     stream = torch.cuda.current_stream(dev).cuda_stream
     is_bf16 = int(q.dtype == torch.bfloat16)
     rc = split_fn(
@@ -231,3 +250,125 @@ def flashd_decode(
         raise RuntimeError(f"flashd_decode: CUDA error {rc} at the merge launch")
     return (o, lam) if return_lam else o
 
+
+
+# ---------------------------------------------------------------------------
+# K3: paged variant — one page per split, through the block table
+# ---------------------------------------------------------------------------
+
+def flashd_decode_paged_plain(
+    q: torch.Tensor,  # [B, Hq, d]
+    k_pages: torch.Tensor,  # [P, page, Hkv, d] — global page pool
+    v_pages: torch.Tensor,  # [P, page, Hkv, dv]
+    block_tbl: torch.Tensor,  # [B, N] int — physical page of logical page j
+    cache_len: torch.Tensor,  # [B] int
+    *,
+    scale: Optional[float] = None,
+    window: int = 0,
+    chunk: int = 0,
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K3's function in plain PyTorch: gather the table's pages (dequantized
+    with the scales), zero every position past cache_len (dead table slots
+    may point at a page holding anything), then `flashd_decode_plain` with
+    one split per page and the in-page-order carry."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    from repro_torch.core.attention import _zero_past, gather_pages  # lazy: no cycle
+
+    b, n_tbl = block_tbl.shape
+    cache_len = torch.as_tensor(cache_len, device=q.device).reshape(b)
+    kc = _zero_past(gather_pages(k_pages, block_tbl, scales=k_scale), cache_len)
+    vc = _zero_past(gather_pages(v_pages, block_tbl, scales=v_scale), cache_len)
+    return flashd_decode_plain(
+        q, kc.transpose(1, 2), vc.transpose(1, 2), cache_len, scale=scale,
+        n_splits=n_tbl, window=window, chunk=chunk, fused=True,
+    )
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+def check_pool(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+               block_tbl: torch.Tensor, k_scale, v_scale):
+    """Checks shared by the paged kernels (K3, K4). Returns the pool's dtype
+    code and the scales as contiguous f32 (or None)."""
+    check_operands(name, (q,), q.shape[-1])
+    check_no_grad(q, k_pages, v_pages)
+    for t in (k_pages, v_pages, block_tbl):
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands must be on one device ({q.device})")
+    if k_pages.shape != v_pages.shape or k_pages.dtype != v_pages.dtype:
+        raise ValueError(f"{name}: k/v pools differ: {tuple(k_pages.shape)} {k_pages.dtype}, "
+                         f"{tuple(v_pages.shape)} {v_pages.dtype} (needs d == dv)")
+    if k_pages.shape[-1] != q.shape[-1] or k_pages.stride(-1) != 1 or v_pages.stride(-1) != 1:
+        raise ValueError(f"{name}: pool head dim {k_pages.shape[-1]} (q {q.shape[-1]}) must "
+                         "match and be contiguous")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    if quantized != (k_pages.dtype == torch.int8) or (
+            not quantized and k_pages.dtype != q.dtype):
+        raise ValueError(f"{name}: pool dtype {k_pages.dtype} with q {q.dtype}: an int8 pool "
+                         "needs k_scale/v_scale, any other pool q's dtype")
+    if block_tbl.dtype != torch.int32 or not block_tbl.is_contiguous():
+        raise ValueError(f"{name}: block_tbl must be a contiguous int32 tensor on the card")
+    if not quantized:
+        return _DTYPE_CODES[k_pages.dtype], None, None
+    p, hkv = k_pages.shape[0], k_pages.shape[2]
+    scales = []
+    for sc in (k_scale, v_scale):
+        if sc.shape != (p, hkv) or sc.device != q.device:
+            raise ValueError(f"{name}: scales must be [P={p}, Hkv={hkv}] on {q.device}")
+        scales.append(sc.float().contiguous())
+    return 2, scales[0], scales[1]
+
+
+def flashd_decode_paged(
+    q: torch.Tensor,  # [B, Hq, d] — any strides with a contiguous head dim
+    k_pages: torch.Tensor,  # [P, page, Hkv, d]
+    v_pages: torch.Tensor,  # [P, page, Hkv, d]
+    block_tbl: torch.Tensor,  # [B, N] int32, on the card
+    cache_len: torch.Tensor,  # [B] int, on the card
+    *,
+    scale: Optional[float] = None,
+    window: int = 0,
+    chunk: int = 0,
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch K3. Returns o [B, Hq, d] in q.dtype."""
+    global paged_launches
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    n_tbl = block_tbl.shape[1] if block_tbl.ndim == 2 else -1
+    kv_type, ks, vs = check_pool("flashd_decode_paged", q, k_pages, v_pages, block_tbl,
+                                 k_scale, v_scale)
+    if block_tbl.shape != (b, n_tbl) or n_tbl < 1 or hq % hkv:
+        raise ValueError(f"flashd_decode_paged: q {tuple(q.shape)}, table "
+                         f"{tuple(block_tbl.shape)}, Hkv {hkv}")
+    if hq // hkv > MAX_GROUP:
+        raise ValueError(f"flashd_decode_paged: group {hq // hkv} > {MAX_GROUP} not built")
+    dev = q.device
+    cache_len = _device_lengths("cache_len", cache_len, b, dev)
+    if scale is None:
+        scale = float(1.0 / (d ** 0.5))
+    o_part = torch.empty((n_tbl, b, hq, d), dtype=torch.float32, device=dev)
+    lam_part = torch.empty((n_tbl, b, hq), dtype=torch.float32, device=dev)
+    o = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    rc = _launchers()[2](
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tbl.data_ptr(),
+        cache_len.data_ptr(), None if ks is None else ks.data_ptr(),
+        None if vs is None else vs.data_ptr(),
+        o_part.data_ptr(), lam_part.data_ptr(), o.data_ptr(),
+        q.stride(0), q.stride(1),
+        k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.stride(0), v_pages.stride(1), v_pages.stride(2), block_tbl.stride(0),
+        b, hq, hkv, n_tbl, page, d, _DTYPE_CODES[q.dtype], kv_type, window, chunk,
+        float(scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    paged_launches += 1
+    if rc != 0:
+        raise RuntimeError(f"flashd_decode_paged: CUDA error {rc} at launch")
+    return o

@@ -2,16 +2,17 @@
 `repro/kernels/ops.py`.
 
 Each entry point is registered under a stable op name (`attention_fwd`,
-`decode`) and takes the MODEL layout ([B, S, H, d] activations, [B, S_max,
-Hkv, d] caches); the kernels read that layout through strides, so nothing
-here transposes a copy. Every op also has a registered fallback with the
+`decode`, `decode_paged`, `varlen`) and takes the MODEL layout ([B, S, H,
+d] activations, [B, S_max, Hkv, d] caches, [P, page, Hkv, d] page pools);
+the kernels read that layout through strides, so nothing here transposes
+a copy. Every op also has a registered fallback with the
 same signature — the plain PyTorch path (`get_fallback`), which the tests
 and the `flashd_plain` impl use; `fallback_impl` maps a kernel impl name to
 it ('flashd_gpu' → 'flashd').
 
 The ops launch CUDA kernels and raise on CPU tensors: nothing here picks a
-path by catching an error. `decode_paged` and `varlen` (K3, K4) and
-`attention_bwd` (K5) register with their slices.
+path by catching an error. `attention_bwd` (K5) registers with the
+training slice (A11).
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.core.blockwise import MaskSpec
-from repro_torch.kernels.flashd_decode import flashd_decode
+from repro_torch.kernels.flashd_decode import flashd_decode, flashd_decode_paged
 from repro_torch.kernels.flashd_fwd import flashd_fwd, flashd_fwd_plain
+from repro_torch.kernels.flashd_varlen import flashd_varlen
 
 __all__ = [
     "gpu_attention_fwd_batched",
     "gpu_decode",
+    "gpu_decode_paged",
+    "gpu_varlen",
     "register_op",
     "get_op",
     "op_names",
@@ -134,6 +138,52 @@ def gpu_decode(
     return o[:, None]
 
 
+@register_op("decode_paged")
+def gpu_decode_paged(
+    q: torch.Tensor,  # [B, 1, Hq, d] or [B, Hq, d]
+    k_pages: torch.Tensor,  # [P, page, Hkv, d]
+    v_pages: torch.Tensor,  # [P, page, Hkv, dv]
+    block_tbl: torch.Tensor,  # [B, N] int32, on the card
+    cache_len: torch.Tensor,  # [B], on the card
+    *,
+    scale=None,
+    window: int = 0,
+    chunk: int = 0,
+    k_scale=None,
+    v_scale=None,
+):
+    """K3 through the block table → o [B, 1, Hq, dv]."""
+    o = flashd_decode_paged(
+        q[:, 0] if q.ndim == 4 else q, k_pages, v_pages, block_tbl, cache_len,
+        scale=scale, window=window, chunk=chunk, k_scale=k_scale, v_scale=v_scale,
+    )
+    return o[:, None]
+
+
+@register_op("varlen")
+def gpu_varlen(
+    q: torch.Tensor,  # [T, Hq, d], T a multiple of block_q
+    k_pages: torch.Tensor,  # [P, page, Hkv, d]
+    v_pages: torch.Tensor,  # [P, page, Hkv, dv]
+    block_tbl: torch.Tensor,  # [B, N] int32, on the card
+    seq_ids: torch.Tensor,  # [T]
+    q_pos: torch.Tensor,  # [T]
+    kv_len: torch.Tensor,  # [B]
+    *,
+    scale=None,
+    window: int = 0,
+    chunk: int = 0,
+    block_q: int,
+    k_scale=None,
+    v_scale=None,
+):
+    """K4 over the packed rows → o [T, Hq, dv]."""
+    return flashd_varlen(
+        q, k_pages, v_pages, block_tbl, seq_ids, q_pos, kv_len, scale=scale,
+        window=window, chunk=chunk, block_q=block_q, k_scale=k_scale, v_scale=v_scale,
+    )
+
+
 @register_fallback("attention_fwd")
 def plain_attention_fwd_batched(q, k, v, *, mask: MaskSpec, scale: float,
                                 block_k: int | None = None, skip: bool = False):
@@ -152,4 +202,27 @@ def plain_decode(q, k_cache, v_cache, cache_len, *, scale=None, n_splits=None,
     return decode_attention(
         q if q.ndim == 4 else q[:, None], k_cache, v_cache, cache_len,
         scale=scale, window=window, chunk=chunk, n_splits=n_splits,
+    )
+
+
+@register_fallback("decode_paged")
+def plain_decode_paged(q, k_pages, v_pages, block_tbl, cache_len, *, scale=None,
+                       window: int = 0, chunk: int = 0, k_scale=None, v_scale=None):
+    from repro_torch.core.attention import decode_attention_paged  # lazy: avoid cycle
+
+    return decode_attention_paged(
+        q if q.ndim == 4 else q[:, None], k_pages, v_pages, block_tbl, cache_len,
+        scale=scale, window=window, chunk=chunk, k_scale=k_scale, v_scale=v_scale,
+    )
+
+
+@register_fallback("varlen")
+def plain_varlen(q, k_pages, v_pages, block_tbl, seq_ids, q_pos, kv_len, *, scale=None,
+                 window: int = 0, chunk: int = 0, block_q: int, k_scale=None, v_scale=None):
+    from repro_torch.core.attention import varlen_attention  # lazy: avoid cycle
+
+    return varlen_attention(
+        q, k_pages, v_pages, block_tbl, seq_ids, q_pos, kv_len, scale=scale,
+        window=window, chunk=chunk, impl="flashd_plain", block_q=block_q,
+        k_scale=k_scale, v_scale=v_scale,
     )

@@ -12,7 +12,7 @@ class ModelApi(NamedTuple):
     init: Callable  # (cfg, *, device, seed | generator) -> params
     apply: Callable  # (params, batch, cfg) -> (logits, aux)
     loss: Callable  # (params, batch, cfg) -> (loss, metrics)
-    init_cache: Callable  # (batch, max_len, cfg, *, device) -> cache
+    init_cache: Callable  # (batch, max_len, cfg, *, layout, page_size, n_pages, device) -> cache
     decode_step: Callable  # (params, cache, token, pos, cfg) -> (logits, cache)
 
 

@@ -5,14 +5,18 @@
 Parameters are the reference's tree, a plain dict of tensors: `embed`,
 `final_norm`, `lm_head`, and `blocks/pos{j}/...` stacked on a leading layer
 axis. Where the reference scans that axis, the port loops over it in
-Python; attention runs through `repro_torch.core.attention` (the K1 kernel
-on the card for full sequences, the K2 kernel for decode).
+Python; attention runs through `repro_torch.core.attention` (on the card:
+the K1 kernel for full sequences, K2 for decode on the contiguous cache,
+K3 for decode on the paged pool, K4 for the packed mixed step).
 
-The KV cache is updated IN PLACE (`index_put` into the stacked [L, B, S,
-Hkv, hd] tensors), where the reference rebuilt it functionally. Decode
-therefore returns the same cache object it was given. The fault-tolerant
-retry of a later slice (A10) needs the reference's commit-after-sync
-discipline back: a step that is retried must not see its own writes.
+Caches: contiguous ([L, B, S, Hkv, hd] per layer group) or paged (a page
+pool [L, P, page, Hkv, hd] per layer plus block tables [L, B, N]; every
+layer holds the same table). They are updated IN PLACE (`index_put` into
+the stacked tensors), where the reference rebuilt them functionally, so
+decode and `forward_packed` return the cache object they were given. The
+fault-tolerant retry of a later slice (A10) needs the reference's
+commit-after-sync discipline back: a step that is retried must not see
+its own writes.
 """
 
 from __future__ import annotations
@@ -21,7 +25,14 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.attention import MaskSpec, decode_attention, flash_attention, uses_kernel
+from repro_torch.core.attention import (
+    MaskSpec,
+    decode_attention,
+    decode_attention_paged,
+    flash_attention,
+    uses_kernel,
+    varlen_attention,
+)
 from repro_torch.devices import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -39,6 +50,9 @@ __all__ = [
     "init_decode_cache",
     "decode_step_lm",
     "prefill_lm",
+    "paged_mixers",
+    "packed_mixers_ok",
+    "forward_packed",
 ]
 
 _AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_dropped")
@@ -242,39 +256,88 @@ def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
 # serving: contiguous per-layer caches + one-token decode
 # ---------------------------------------------------------------------------
 
+def paged_mixers(cfg: ModelConfig):
+    """Mixer kinds that take the paged layout: full-length (global)
+    attention caches only — here every ported mixer ('attn', 'attn_nope')."""
+    return tuple(
+        m for m, _ in (*cfg.pattern, *cfg.remainder)
+        if m.startswith("attn") and m not in ("attn_local", "attn_chunked")
+    )
+
+
+def packed_mixers_ok(cfg: ModelConfig) -> bool:
+    """Can this stack run the packed varlen mixed step? Every mixer must
+    read and write per-sequence state through the paged cache alone:
+    global causal attention ('attn', 'attn_nope')."""
+    return all(m in ("attn", "attn_nope") for m, _ in (*cfg.pattern, *cfg.remainder))
+
+
 def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
-                      layout: str = "contiguous", kv_dtype: str = "", device=None,
-                      **_unused) -> dict:
-    """Zeroed contiguous caches {'blocks': {'pos{j}': {'k', 'v'}}}, each
-    [n_blocks, batch, max_len, Hkv, hd] in the compute dtype — the
-    reference's tree. The paged layout (A5) and quantized pools (A8) are
-    not ported."""
+                      layout: str = "contiguous", page_size: Optional[int] = None,
+                      n_pages: Optional[int] = None, kv_dtype: str = "", device=None) -> dict:
+    """Zeroed decode caches in the reference's tree {'blocks': {'pos{j}':
+    ...}}, in the compute dtype.
+
+    layout="contiguous": {'k', 'v'}, each [n_blocks, batch, max_len, Hkv, hd].
+    layout="paged": {'k_pages', 'v_pages'} [n_blocks, P, page, Hkv, hd] and
+    'tbl' [n_blocks, batch, N] int32 (N = ⌈max_len / page⌉), every row
+    starting on the garbage page 0. The geometry comes from
+    `tuning.choose_page_layout`, sized at (n_pages − 1)·page_size tokens
+    when both are given, else at batch·max_len — as the reference. A
+    quantized pool (kv_dtype, A8) is not ported."""
     check_ported(cfg)
-    if layout != "contiguous":
-        raise NotImplementedError(f"cache layout {layout!r} not ported (A5)")
+    if layout not in ("contiguous", "paged"):
+        raise ValueError(f"unknown cache layout {layout!r}")
     if kv_dtype:
         raise NotImplementedError(f"kv_dtype {kv_dtype!r} not ported (A8)")
     dev = resolve_device(device)
+    geom = None
+    if layout == "paged":
+        from repro_torch.kernels.tuning import choose_page_layout  # lazy: no cycle
+
+        pl_ = choose_page_layout(
+            max_len, cfg.head_dim_, cfg.head_dim_,
+            group=cfg.n_heads // cfg.n_kv_heads,
+            pool_tokens=(n_pages - 1) * page_size if (n_pages and page_size)
+            else batch * max_len,
+            page_size=page_size,
+        )
+        geom = (pl_.n_pages, pl_.page_size, pl_.pages_per_seq)
+
+    def layer(n: int) -> dict:
+        dt = cfg.compute_dtype
+        if geom is None:
+            shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+            return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                    "v": torch.zeros(shape, dtype=dt, device=dev)}
+        n_p, page, per_seq = geom
+        pshape = (n, n_p, page, cfg.n_kv_heads, cfg.head_dim_)
+        return {
+            "k_pages": torch.zeros(pshape, dtype=dt, device=dev),
+            "v_pages": torch.zeros(pshape, dtype=dt, device=dev),
+            "tbl": torch.zeros((n, batch, per_seq), dtype=torch.int32, device=dev),
+        }
+
     cache: dict = {}
     for key, pattern in _groups(cfg):
         n = cfg.n_blocks if key == "blocks" else 1
-        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
-        cache[key] = {
-            f"pos{j}": {
-                "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-                "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=dev),
-            }
-            for j in range(len(pattern))
-        }
+        cache[key] = {f"pos{j}": layer(n) for j in range(len(pattern))}
     return cache
 
 
 def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos, alive=None):
     """One-token attention against the cache; writes this token's K/V in
-    place at slot pos % max_len. pos [B] absolute position. Rows with
-    alive == False keep their cache unchanged (prefill_lm's `lengths`)."""
+    place at slot pos % max_len (contiguous) or through the block table
+    (paged). pos [B] absolute position. On the contiguous cache, rows with
+    alive == False keep their cache unchanged (prefill_lm's `lengths`); a
+    paged pool takes their writes, which land past the row's length (the
+    reference's `_freeze_dead_rows` passes pool leaves through too)."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, kind, pos[:, None])
+    if "k_pages" in cache:
+        o = _paged_attn_step(q, k, v, cfg, cache, pos)
+        return torch.matmul(o.reshape(b, 1, cfg.n_heads * cfg.head_dim_),
+                            p["wo"].to(cfg.compute_dtype))
     k_cache, v_cache = cache["k"], cache["v"]  # [B, S_max, Hkv, hd] views
     write_idx = pos % k_cache.shape[1]
     bidx = torch.arange(b, device=x.device)
@@ -296,6 +359,29 @@ def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos, alive=None):
     return torch.matmul(o, p["wo"].to(cfg.compute_dtype))
 
 
+def _paged_attn_step(q, k, v, cfg: ModelConfig, cache, pos):
+    """One-token attention against a paged cache: write the new K/V in place
+    into the position's physical page through the block table, then attend
+    through the table (K3 on the card). Writes past the table (dead slots
+    whose `pos` keeps advancing in the lockstep batch) land on the garbage
+    page 0. → o [B, 1, Hq, hd]."""
+    b = q.shape[0]
+    k_pages, v_pages, tbl = cache["k_pages"], cache["v_pages"], cache["tbl"]
+    page, n_tbl = k_pages.shape[1], tbl.shape[1]
+    bidx = torch.arange(b, device=q.device)
+    page_idx = torch.div(pos, page, rounding_mode="floor")
+    pid = torch.where(page_idx < n_tbl, tbl[bidx, torch.clamp(page_idx, max=n_tbl - 1)], 0).long()
+    slot = pos % page
+    k_pages[pid, slot] = k[:, 0]
+    v_pages[pid, slot] = v[:, 0]
+    eff_len = pos + 1
+    if uses_kernel(cfg.attn_impl, q):
+        from repro_torch.kernels import ops  # lazy: no cycle
+
+        return ops.get_op("decode_paged")(q, k_pages, v_pages, tbl, eff_len)
+    return decode_attention_paged(q, k_pages, v_pages, tbl, eff_len)
+
+
 def _decode_block(bp, h, cfg: ModelConfig, spec, cache, pos, alive=None):
     mixer, _ = spec
     x = rms_norm(h, bp["norm1"], cfg.norm_eps)
@@ -308,7 +394,7 @@ def _run_cached_groups(params: dict, cache: dict, h, cfg: ModelConfig, block_ste
     → h`, layer by layer; `bc` holds views of the stacked cache, so the
     step's writes land in `cache` itself."""
     for key, pattern in _groups(cfg):
-        for i in range(cache[key]["pos0"]["k"].shape[0]):
+        for i in range(next(iter(cache[key]["pos0"].values())).shape[0]):  # layer axis
             h = block_step(_index(params[key], i), _index(cache[key], i), h, pattern)
     return h
 
@@ -363,3 +449,70 @@ def prefill_lm(params: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig
         seen = seen | take
     logits = logits_from_hidden(h_last, _head(params, cfg), cfg.vocab_size)[:, 0]
     return torch.where(seen[:, None], logits, 0.0), cache
+
+
+# ---------------------------------------------------------------------------
+# serving: the packed varlen step (prefill chunks and decode rows together)
+# ---------------------------------------------------------------------------
+
+def _packed_attn(p, x, cfg: ModelConfig, kind: str, cache, positions, seq_ids, kv_len,
+                 block_q: Optional[int]):
+    """Packed varlen attention for one layer: write the pack's new K/V in
+    place into each row's physical page through the block table (padding
+    rows — seq_ids or positions < 0 — and rows past the table write the
+    garbage page 0), then attend the pack through `varlen_attention` (K4 on
+    the card). x [1, T, D]; positions / seq_ids [T]; kv_len [B]."""
+    t = x.shape[1]
+    q, k, v = _qkv(p, x, cfg, kind, positions[None])
+    k_pages, v_pages, tbl = cache["k_pages"], cache["v_pages"], cache["tbl"]
+    page, n_tbl = k_pages.shape[1], tbl.shape[1]
+    sid = torch.clamp(seq_ids, min=0)
+    page_idx = torch.div(positions, page, rounding_mode="floor")
+    in_tbl = (seq_ids >= 0) & (positions >= 0) & (page_idx < n_tbl)
+    pid = torch.where(in_tbl, tbl[sid, torch.clamp(page_idx, 0, n_tbl - 1)], 0).long()
+    slot = torch.where(positions >= 0, positions % page, 0)
+    k_pages[pid, slot] = k[0]
+    v_pages[pid, slot] = v[0]
+    o = varlen_attention(q[0], k_pages, v_pages, tbl, seq_ids, positions, kv_len,
+                         impl=cfg.attn_impl, block_q=block_q)
+    return torch.matmul(o.reshape(1, t, cfg.n_heads * cfg.head_dim_), p["wo"].to(cfg.compute_dtype))
+
+
+def forward_packed(params: dict, tokens: torch.Tensor, seq_ids: torch.Tensor,
+                   positions: torch.Tensor, kv_len: torch.Tensor, cache: dict,
+                   cfg: ModelConfig, last_rows: torch.Tensor, block_q: Optional[int] = None):
+    """One packed varlen step over the whole stack: tokens / seq_ids /
+    positions [T] (−1 = padding row), kv_len [B] per-sequence KV length
+    AFTER this pack, a paged cache (updated in place). Returns (logits at
+    `last_rows` — [B, Vpad] for 1-D rows, [B, R, Vpad] for 2-D rows; garbage
+    where rows < 0 — and the cache).
+
+    `block_q` MUST be the granularity the caller aligned segments to (K4
+    derives each block's sequence from it); None takes cfg.attn_block_q,
+    which only the plain path may leave unset."""
+    if not packed_mixers_ok(cfg):
+        raise ValueError(f"{cfg.name}: packed step needs a pure global-attention stack")
+    dev = params["embed"].device
+    seq_ids = torch.as_tensor(seq_ids, device=dev).long()
+    positions = torch.as_tensor(positions, device=dev).long()
+    kv_len = torch.as_tensor(kv_len, device=dev).long()
+    h = embed_lookup(params["embed"], torch.as_tensor(tokens, device=dev).long()[None],
+                     cfg.compute_dtype)  # [1, T, D]
+    bq = block_q if block_q is not None else cfg.attn_block_q
+
+    def block_step(bp, bc, h, pattern):
+        for j, (mixer, _) in enumerate(pattern):
+            bpj = bp[f"pos{j}"]
+            x = rms_norm(h, bpj["norm1"], cfg.norm_eps)
+            h = h + _packed_attn(bpj["mixer"], x, cfg, mixer, bc[f"pos{j}"], positions,
+                                 seq_ids, kv_len, bq)
+            h = h + _apply_swiglu(bpj["ffn"], rms_norm(h, bpj["norm2"], cfg.norm_eps), cfg)
+        return h
+
+    h = _run_cached_groups(params, cache, h, cfg, block_step)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    rows = torch.as_tensor(last_rows, device=dev).long()
+    sel = h[0, torch.clamp(rows, min=0)]  # [B, D] or [B, R, D]; rows < 0 garbage
+    if rows.ndim == 1:
+        return logits_from_hidden(sel[:, None], _head(params, cfg), cfg.vocab_size)[:, 0], cache
+    return logits_from_hidden(sel, _head(params, cfg), cfg.vocab_size), cache

@@ -19,6 +19,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import blockwise as tb
 from repro_torch.kernels import flashd_decode as k2
 from repro_torch.kernels import flashd_fwd as k1
+from repro_torch.kernels import flashd_varlen as k4
 from repro_torch.models.transformer import apply_lm, init_lm
 from repro_torch.serve import Engine, ServeConfig
 
@@ -175,3 +176,170 @@ def test_engine_kernel_path_matches_plain_path(cuda, arch):
     _close(logits[..., :cfg.vocab_size], logits_p[..., :cfg.vocab_size], 1e-4)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+# ---- K3 (paged decode) and K4 (packed varlen) ----
+
+def _paged_pool(gen, dev, lengths, n_tbl, page, hkv, d, dtype=torch.float32):
+    """A pool of distinct shuffled pages, page 0 (the garbage page every
+    dead table slot points at) filled with NaN — or, for int8, NaN scales."""
+    b = len(lengths)
+    n_pages = b * n_tbl + 1
+    shape = (n_pages, page, hkv, d)
+    if dtype == torch.int8:
+        kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        ks = torch.rand(n_pages, hkv, generator=gen, device=dev) / 64 + 1e-3
+        vs = torch.rand(n_pages, hkv, generator=gen, device=dev) / 64 + 1e-3
+        ks[0] = vs[0] = float("nan")
+    else:
+        kp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        kp[0] = vp[0] = float("nan")
+        ks = vs = None
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    tbl = perm.reshape(b, n_tbl).to(torch.int32)
+    for i, n in enumerate(lengths):
+        tbl[i, -(-n // page):] = 0  # slots past the live pages: the garbage page
+    return kp, vp, tbl, ks, vs
+
+
+PAGED_CASES = [
+    # (group, page, window, chunk)
+    (1, 4, 0, 0),
+    (2, 8, 0, 0),
+    (2, 64, 0, 0),
+    (4, 16, 11, 0),
+    (8, 8, 0, 12),
+    (2, 128, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_decode_kernel_matches_plain(cuda, case):
+    group, page, window, chunk = case
+    gen = torch.Generator(device=cuda).manual_seed(page * 10 + group)
+    hkv, d, n_tbl = 2, 128, 6
+    full = n_tbl * page
+    lengths = [0, 1, page, page + 1, full - 1, full]
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn(len(lengths), hkv * group, d, generator=gen, device=cuda)
+    kp, vp, tbl, _, _ = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d)
+    kw = dict(window=window, chunk=chunk)
+    k2.paged_launches = 0
+    o = k2.flashd_decode_paged(q, kp, vp, tbl, cl, **kw)
+    assert k2.paged_launches == 1
+    o_p = k2.flashd_decode_paged_plain(q, kp, vp, tbl, cl, **kw)
+    assert torch.isfinite(o).all()
+    _close(o, o_p)
+    assert (o[0] == 0).all()
+    kb, vb = kp.bfloat16(), vp.bfloat16()
+    _close(k2.flashd_decode_paged(q.bfloat16(), kb, vb, tbl, cl, **kw),
+           k2.flashd_decode_paged_plain(q.bfloat16(), kb, vb, tbl, cl, **kw), BF16_TOL)
+    ki, vi, tbl_i, ks, vs = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d, torch.int8)
+    oi = k2.flashd_decode_paged(q, ki, vi, tbl_i, cl, k_scale=ks, v_scale=vs, **kw)
+    assert torch.isfinite(oi).all()
+    _close(oi, k2.flashd_decode_paged_plain(q, ki, vi, tbl_i, cl, k_scale=ks, v_scale=vs, **kw))
+
+
+def _pack(lengths, seg_rows, block_q):
+    """seq_ids / q_pos of a pack: per sequence s, its last seg_rows[s] positions
+    (a whole prompt, a mid-sequence chunk, a 1-row decode, a verify chain),
+    each segment padded to block_q, then one all-padding block."""
+    seq_ids, q_pos = [], []
+    for s, (n, r) in enumerate(zip(lengths, seg_rows)):
+        if r == 0:
+            continue
+        pad = (-r) % block_q
+        seq_ids += [s] * r + [-1] * pad
+        q_pos += list(range(n - r, n)) + [-1] * pad
+    seq_ids += [-1] * block_q
+    q_pos += [-1] * block_q
+    return seq_ids, q_pos
+
+
+VARLEN_CASES = [
+    # (group, page, block_q, window, chunk)
+    (1, 8, 8, 0, 0),
+    (2, 16, 8, 0, 0),
+    (2, 64, 16, 0, 0),
+    (4, 4, 16, 9, 0),
+    (8, 8, 8, 0, 10),
+    (2, 128, 8, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", VARLEN_CASES)
+def test_varlen_kernel_matches_plain(cuda, case):
+    group, page, block_q, window, chunk = case
+    gen = torch.Generator(device=cuda).manual_seed(page * 100 + block_q + group)
+    hkv, d, n_tbl = 2, 128, 8
+    lengths = [37, page * 2 + 5, 1, 150 % (n_tbl * page) + 1, 0, n_tbl * page]
+    seg_rows = [37, 16, 1, 5, 0, 3]  # whole prompt, chunk, decode, verify, absent, tail
+    seq_ids, q_pos = _pack(lengths, [min(r, n) for r, n in zip(seg_rows, lengths)], block_q)
+    t = len(seq_ids)
+    sid = torch.tensor(seq_ids, dtype=torch.int32, device=cuda)
+    qp = torch.tensor(q_pos, dtype=torch.int32, device=cuda)
+    kvl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn(t, hkv * group, d, generator=gen, device=cuda)
+    kp, vp, tbl, _, _ = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d)
+    kw = dict(window=window, chunk=chunk, block_q=block_q)
+    k4.launches = 0
+    o = k4.flashd_varlen(q, kp, vp, tbl, sid, qp, kvl, **kw)
+    assert k4.launches == 1
+    o_p = k4.flashd_varlen_plain(q, kp, vp, tbl, sid, qp, kvl, **kw)
+    assert torch.isfinite(o).all()
+    _close(o, o_p)
+    assert (o[qp < 0] == 0).all()  # padding rows: exact zeros
+    kb, vb = kp.bfloat16(), vp.bfloat16()
+    ob = k4.flashd_varlen(q.bfloat16(), kb, vb, tbl, sid, qp, kvl, **kw)
+    _close(ob, k4.flashd_varlen_plain(q.bfloat16(), kb, vb, tbl, sid, qp, kvl, **kw), BF16_TOL)
+    assert (ob[qp < 0] == 0).all()
+    ki, vi, tbl_i, ks, vs = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d, torch.int8)
+    oi = k4.flashd_varlen(q, ki, vi, tbl_i, sid, qp, kvl, k_scale=ks, v_scale=vs, **kw)
+    assert torch.isfinite(oi).all()
+    _close(oi, k4.flashd_varlen_plain(q, ki, vi, tbl_i, sid, qp, kvl, k_scale=ks, v_scale=vs,
+                                      **kw))
+
+
+def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.randn(2, 4, 64, device=cuda)
+    kp = torch.randn(5, 8, 2, 64, device=cuda)
+    tbl = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    cl = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        k2.flashd_decode_paged(q, kp, kp, tbl.long(), cl)
+    with pytest.raises(ValueError, match="int8"):
+        k2.flashd_decode_paged(q, kp.to(torch.int8), kp.to(torch.int8), tbl, cl)
+    with pytest.raises(ValueError, match="multiple of block_q"):
+        k4.flashd_varlen(q[:1].expand(6, 4, 64), kp, kp, tbl, cl.new_zeros(6), cl.new_zeros(6),
+                         cl, block_q=4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "paper-llama"])
+@pytest.mark.parametrize("mode", [dict(kv_layout="paged"), dict(step_mode="mixed"),
+                                  dict(step_mode="mixed", kv_pool_tokens=96, page_size=8)])
+def test_paged_and_mixed_engines_kernel_path_match_plain(cuda, arch, mode):
+    """Smoke widths, f32: the paged and mixed loops launch K3 (and K4 in the
+    mixed loop), give the plain path's and the contiguous loop's tokens,
+    and leave the allocator consistent."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=1)
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (5, 37, 9, 30)]
+    sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, prefix_cache=False, **mode)
+    base = Engine(params, cfg, ServeConfig(max_batch=2, max_len=64, decode_chunk=3),
+                  device=cuda).serve(reqs, 8)
+    k2.paged_launches = k4.launches = 0
+    eng = Engine(params, cfg, sc, device=cuda)
+    got = eng.serve(reqs, 8)
+    eng._alloc.check()
+    assert k2.paged_launches > 0
+    assert (k4.launches > 0) == (sc.step_mode == "mixed")
+    before = (k2.paged_launches, k4.launches)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    want = Engine(params, plain_cfg, sc, device=cuda).serve(reqs, 8)
+    assert (k2.paged_launches, k4.launches) == before
+    for g, w, c in zip(got, want, base):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, c)

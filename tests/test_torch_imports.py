@@ -37,6 +37,7 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "import repro_torch, repro_torch.bridge, repro_torch.serve, repro_torch.launch.serve\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref, repro_torch.kernels._build\n"
+        "import repro_torch.kernels.flashd_varlen, repro_torch.runtime, repro_torch.runtime.kvcache\n"
         "import repro_torch.configs, repro_torch.core\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
@@ -51,7 +52,7 @@ def test_importing_builds_nothing():
     """Kernels build on first launch, never at import (there is no nvcc here)."""
     from repro_torch.kernels import _build
 
-    assert set(_build.SOURCES) == {"flashd_fwd", "flashd_decode"}
+    assert set(_build.SOURCES) == {"flashd_fwd", "flashd_decode", "flashd_varlen"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -83,6 +84,27 @@ def test_entry_points_raise_without_a_card():
         Engine(params, cfg, ServeConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--arch", "qwen3-0.6b", "--smoke", "--requests", "1"])
+
+
+def test_port_files_cover_the_new_modules():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("runtime/__init__.py", "runtime/kvcache.py", "kernels/flashd_varlen.py"):
+        assert f"src/repro_torch/{mod}" in names
+
+
+@pytest.mark.parametrize("flags", [["--kv-layout", "paged", "--no-prefix-cache"],
+                                   ["--step-mode", "mixed", "--no-prefix-cache",
+                                    "--prefill-chunk", "4", "--page-size", "8"]])
+def test_launcher_runs_the_paged_loops_on_the_cpu(capsys, flags):
+    from repro_torch.launch import serve as launch_serve
+
+    rc = launch_serve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",
+                            "--requests", "3", "--prompt-len", "9", "--max-new-tokens", "4",
+                            "--max-batch", "2", *flags])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert "time-to-first-token" in out and "kv pool" in out
+    assert out.count("request ") >= 3
 
 
 def test_launcher_runs_on_the_cpu_when_asked(capsys):

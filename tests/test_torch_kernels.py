@@ -152,11 +152,13 @@ def test_tuning_heuristics_are_the_reference():
 
 
 def test_registry_and_impl_routing():
-    assert ops.op_names() == ("attention_fwd", "decode")
+    assert ops.op_names() == ("attention_fwd", "decode", "decode_paged", "varlen")
+    for name in ops.op_names():
+        assert callable(ops.get_fallback(name))
     assert ops.fallback_impl("flashd_gpu") == "flashd"
     assert ops.fallback_impl("naive") == "naive"
     with pytest.raises(KeyError):
-        ops.get_op("varlen")
+        ops.get_op("attention_bwd")  # the training slice (A11)
     x = torch.zeros(1)
     assert not tatt.uses_kernel("flashd", x)  # CPU tensor: plain path
     assert tatt.uses_kernel("flashd_gpu", x)  # always the kernel

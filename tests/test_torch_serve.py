@@ -3,7 +3,10 @@ reference `Engine` (attn_impl 'flashd') on the same weights, f32.
 
 Greedy tokens must be identical: `generate`, and `serve` on the contiguous
 sequential loop, including the EOS, max_new_tokens=1 and decode_chunk
-edges and priority preemption. Temperature sampling uses a torch
+edges and priority preemption; `serve` on the paged loop and the mixed
+loop (preemption on and off, an oversubscribed pool that forces
+preemption), which must also equal the port's contiguous loop and leave
+the page allocator consistent. Temperature sampling uses a torch
 Generator, which cannot match jax.random: it is tested for shape, range
 and seed determinism only."""
 
@@ -140,10 +143,110 @@ def test_engine_sampling_is_seed_deterministic(model):
 
 def test_unported_serving_options_raise(model):
     _, _, tcfg, tp = model
-    for kw, item in (({"kv_layout": "paged"}, "A5"), ({"step_mode": "mixed"}, "A6"),
+    # the paged pools refuse the prefix cache (A7) — on by default, as the reference
+    for kw, item in (({"kv_layout": "paged"}, "A7"), ({"step_mode": "mixed"}, "A7"),
                      ({"kv_dtype": "int8"}, "A8"), ({"spec_tokens": 2}, "A9"),
                      ({"fault_rate": 0.1}, "A10")):
         with pytest.raises(NotImplementedError, match=item):
             Engine(tp, tcfg, ServeConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="prefix_cache=False"):
+        Engine(tp, tcfg, ServeConfig(kv_layout="paged"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        Engine(tp, tcfg, ServeConfig(kv_layout="paged", prefix_cache=False, kv_dtype="int8"),
+               device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         Engine(tp, tcfg, ServeConfig(), device="cpu").snapshot()
+    # the contiguous loop ignores the prefix-cache flags, as the reference does
+    Engine(tp, tcfg, ServeConfig(prefix_cache=True), device="cpu")
+
+
+# ---- the paged and mixed loops ----
+
+POOL_MODES = {
+    "paged": dict(kv_layout="paged"),
+    "paged-no-preemption": dict(kv_layout="paged", preemption=False),
+    "mixed": dict(step_mode="mixed"),
+    "mixed-no-preemption": dict(step_mode="mixed", preemption=False),
+}
+
+
+def _check_pool(te):
+    te._alloc.check()
+    assert te._alloc.pages_in_use == 0  # every page freed at the end
+    st = te.stats()
+    assert st["kv_pool_bytes"] > 0 and st["kv_dtype"] == "native"
+    lay = te._page_layout
+    assert st["kv_pool_bytes"] == st["kv_bytes_per_token"] * lay.n_pages * lay.page_size
+
+
+@pytest.mark.parametrize("mode", sorted(POOL_MODES))
+def test_paged_and_mixed_serve_match_reference(model, mode):
+    jcfg = model[0]
+    kw = dict(max_batch=2, max_len=40, decode_chunk=3, prefix_cache=False, **POOL_MODES[mode])
+    je, te = _engines(model, **kw)
+    reqs = _prompts(jcfg, (4, 19, 6, 3, 11), 3)
+    want = je.serve(reqs, max_new_tokens=6)
+    got = te.serve(reqs, max_new_tokens=6)
+    contiguous = _engines(model, max_batch=2, max_len=40, decode_chunk=3)[1].serve(reqs, 6)
+    for g, w, c in zip(got, want, contiguous):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, c)
+    assert te.peak_active == je.peak_active
+    assert te.stats()["request_status"] == {i: "done" for i in range(len(reqs))}
+    _check_pool(te)
+    # the pool lives on the engine: a second call reuses it, same tokens
+    alloc = te._alloc
+    again = te.serve(reqs[:2], max_new_tokens=6)
+    assert te._alloc is alloc
+    for g, w in zip(again, want[:2]):
+        np.testing.assert_array_equal(g, w)
+    _check_pool(te)
+
+
+@pytest.mark.parametrize("mode", ["paged", "mixed", "mixed-no-preemption"])
+def test_oversubscribed_pool_matches_reference(model, mode):
+    """A pool of 8 usable 4-token pages for 2 slots that want up to 7 each:
+    with preemption the victim re-queues and recomputes, without it the head
+    waits for frees; tokens stay the reference's either way."""
+    jcfg = model[0]
+    kw = dict(max_batch=2, max_len=40, decode_chunk=3, prefix_cache=False, page_size=4,
+              kv_pool_tokens=32, **POOL_MODES[mode])
+    je, te = _engines(model, **kw)
+    reqs = _prompts(jcfg, (4, 19, 6, 3, 11), 3)
+    want = je.serve(reqs, max_new_tokens=6)
+    got = te.serve(reqs, max_new_tokens=6)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert te.stats()["preemptions"] == je.stats()["preemptions"]
+    assert (te.stats()["preemptions"] > 0) == te.sc.preemption
+    _check_pool(te)
+
+
+def test_paged_serve_priorities_and_eos_match_reference(model):
+    jcfg = model[0]
+    reqs = _prompts(jcfg, (6, 5, 8, 4), 4)
+    plain = _engines(model, max_batch=2, max_len=32, decode_chunk=2)[1].serve(reqs, 6)
+    prios = [0, 0, 2, 1]
+    for mode in ("paged", "mixed"):
+        kw = dict(max_batch=2, max_len=32, decode_chunk=2, eos_id=int(plain[1][1]),
+                  prefix_cache=False, **POOL_MODES[mode])
+        je, te = _engines(model, **kw)
+        want = je.serve(reqs, max_new_tokens=6, priorities=prios)
+        got = te.serve(reqs, max_new_tokens=6, priorities=prios)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert te.stats()["preemptions"] == je.stats()["preemptions"]
+        _check_pool(te)
+
+
+def test_pool_too_small_for_a_request_raises_and_recovers(model):
+    from repro_torch.runtime import PageError
+
+    jcfg = model[0]
+    te = _engines(model, max_batch=2, max_len=40, kv_layout="paged", prefix_cache=False,
+                  page_size=4, kv_pool_tokens=12)[1]
+    with pytest.raises(PageError):
+        te.serve(_prompts(jcfg, (30,), 5), max_new_tokens=4)
+    out = te.serve(_prompts(jcfg, (5,), 6), max_new_tokens=4)  # a fresh pool
+    assert len(out[0]) == 4
+    _check_pool(te)

@@ -5,6 +5,8 @@ from repro_torch.core.blockwise import (
     DEFAULT_SKIP_THETA,
     NEG_INF,
     MaskSpec,
+    blockwise_backward,
+    blockwise_fa2,
     blockwise_flashd,
     merge_pair,
     merge_partials,
@@ -12,6 +14,7 @@ from repro_torch.core.blockwise import (
 )
 
 __all__ = [
-    "DEFAULT_SKIP_THETA", "NEG_INF", "MaskSpec", "blockwise_flashd", "merge_pair",
-    "merge_partials", "tile_live", "flash_attention", "decode_attention",
+    "DEFAULT_SKIP_THETA", "NEG_INF", "MaskSpec", "blockwise_flashd", "blockwise_fa2",
+    "blockwise_backward", "merge_pair", "merge_partials", "tile_live", "flash_attention",
+    "decode_attention",
 ]

@@ -1,6 +1,6 @@
 """Public attention ops — the port of `repro/core/attention.py`.
 
-`flash_attention`  — prefill: [B, S, H, d] tensors, forward only.
+`flash_attention`  — training / prefill: [B, S, H, d] tensors, differentiable.
 `decode_attention` — single-token decode against a KV cache with dynamic
                      length: split-K partials merged with the FLASH-D
                      sigmoid blend (plain PyTorch).
@@ -15,19 +15,26 @@ length before they use it, so table slots past the live pages (the
 engine points them at the garbage page 0, which may hold anything) can
 never reach a result — the kernels never read them at all.
 
-impl ∈ {'flashd', 'flashd_gpu', 'flashd_plain', 'naive'}:
+impl ∈ IMPLS:
   flashd        — a CUDA tensor launches the K1 kernel, a CPU tensor takes
                   the plain tiled recurrence (the default).
   flashd_gpu    — always the kernel; raises on a CPU tensor. The bridge maps
                   the reference's 'flashd_pallas' here.
   flashd_plain  — the plain tiled recurrence on any device (tests and
                   chip_smoke.py hold the kernel against it).
+  fa2, fa2_gpu, fa2_plain — the same three routes for the FlashAttention-2
+                  baseline (K6 and `blockwise_fa2`).
   naive         — the O(S²) softmax oracle.
+  xla           — O(S²) softmax differentiated by autograd, which saves the
+                  [B, H, Sq, Skv] probabilities: the reference's training
+                  baseline (`_xla_attention`).
 
-The kernel path is forward-only: it refuses inputs that require grad
-(the backward comes with the training slice, A11). 'fa2', 'xla' and the
-context-parallel routes (`maybe_ring_prefill`, `maybe_cp_decode`) are not
-ported yet (K6, A13).
+Every impl but 'xla' runs through one `torch.autograd.Function`, the
+reference's `custom_vjp`: the forward saves (q, k, v, O, Λ) and the
+backward is the `attention_bwd` op — K5 on the kernel route, its plain
+version otherwise — which recomputes the score tiles from (q, k, Λ), so
+nothing [Sq, Skv]-sized is saved. The context-parallel routes
+(`maybe_ring_prefill`, `maybe_cp_decode`) are not ported yet (A13).
 """
 
 from __future__ import annotations
@@ -50,18 +57,19 @@ __all__ = [
     "IMPLS",
 ]
 
-IMPLS = ("flashd", "flashd_gpu", "flashd_plain", "naive")
+IMPLS = ("flashd", "flashd_gpu", "flashd_plain", "fa2", "fa2_gpu", "fa2_plain", "naive", "xla")
 
 
 def uses_kernel(impl: str, x: torch.Tensor) -> bool:
     """Does `impl` launch the CUDA kernels for tensors like `x`?"""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r} not ported (have {IMPLS})")
-    return impl == "flashd_gpu" or (impl == "flashd" and x.is_cuda)
+    return impl.endswith("_gpu") or (impl in ("flashd", "fa2") and x.is_cuda)
 
 
 def _naive(q, k, v, mask: MaskSpec, scale: float):
-    """O(S²) softmax with the dead-row convention, model layout in and out."""
+    """O(S²) softmax with the dead-row convention, model layout in and out
+    → (o [B, Sq, Hq, dv], Λ [B, Hq, Sq])."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -75,7 +83,62 @@ def _naive(q, k, v, mask: MaskSpec, scale: float):
     lam = torch.where(dead, NEG_INF, lam)
     p = torch.where(dead[..., None], 0.0, torch.exp(s - lam[..., None]))
     o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.float())
-    return o.reshape(b, hq, sq, -1).transpose(1, 2).to(q.dtype)
+    return o.reshape(b, hq, sq, -1).transpose(1, 2).to(q.dtype), lam.reshape(b, hq, sq)
+
+
+def _attention_core_fwd(q, k, v, mask, scale, impl, block_q, block_k, skip):
+    """→ (o [B, Sq, Hq, dv] in q.dtype, Λ [B, Hq, Sq] f32) for any impl but xla."""
+    if impl == "naive":
+        return _naive(q, k, v, mask, scale)
+    from repro_torch.kernels import ops  # lazy: avoid import cycle
+
+    family = impl.split("_")[0]  # flashd | fa2
+    if uses_kernel(impl, q):  # the kernel keeps its own tiles; skip's block_k ≤ 64
+        return ops.get_op("attention_fwd")(q, k, v, mask=mask, scale=scale, impl=family,
+                                           block_k=block_k if skip else None, skip=skip)
+    return ops.get_fallback("attention_fwd")(q, k, v, mask=mask, scale=scale, impl=family,
+                                             block_q=block_q, block_k=block_k, skip=skip)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's `_attention_core` custom_vjp: save (q, k, v, O, Λ),
+    differentiate through the `attention_bwd` op (K5 on the kernel route)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale, impl, block_q, block_k, skip):
+        o, lam = _attention_core_fwd(q, k, v, mask, scale, impl, block_q, block_k, skip)
+        ctx.save_for_backward(q, k, v, o, lam)
+        ctx.opts = (mask, scale, impl, block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels import ops  # lazy: avoid import cycle
+
+        q, k, v, o, lam = ctx.saved_tensors
+        mask, scale, impl, block_q, block_k = ctx.opts
+        op = (ops.get_op if uses_kernel(impl, q) else ops.get_fallback)("attention_bwd")
+        dq, dk, dv = op(q, k, v, o, lam, do.contiguous(), mask=mask, scale=scale,
+                        block_q=block_q, block_k=block_k)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _xla_attention(q, k, v, mask: MaskSpec, scale: float):
+    """Plain softmax attention differentiated by autograd — no Function, so
+    the [B, H, Sq, Skv] probabilities are saved for the backward. The
+    reference's training baseline (its BENCH_train comparison)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    if g > 1:  # GQA: materialize the repeated KV heads (baseline semantics)
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    bias = mask.block_bias(torch.arange(sq, device=q.device), torch.arange(skv, device=q.device))
+    if bias is not None:
+        s = s + bias
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
 
 
 def flash_attention(
@@ -92,32 +155,22 @@ def flash_attention(
 ) -> torch.Tensor:
     """Multi-head GQA attention. q [B,Sq,Hq,d]; k,v [B,Skv,Hkv,·] → o [B,Sq,Hq,dv].
 
-    block_q / block_k = None resolves the plain path's tiling from the
-    reference heuristics (`tuning.choose_prefill_blocks`). The kernel keeps
-    its own tiles; with skip on it is handed `block_k`, which must then be
-    ≤ 64 (the skip threshold depends on it)."""
+    Differentiable in q, k and v. block_q / block_k = None resolves the
+    plain path's tiling from the reference heuristics
+    (`tuning.choose_prefill_blocks`). The kernels keep their own tiles;
+    with skip on K1 is handed `block_k`, which must then be ≤ 64 (the skip
+    threshold depends on it). The backward recomputes exact probabilities:
+    the forward's skip does not reach it."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("expected [batch, seq, heads, dim] operands")
     if q.shape[2] % k.shape[2] != 0:
         raise ValueError(f"Hq={q.shape[2]} not a multiple of Hkv={k.shape[2]}")
     if scale is None:
         scale = float(1.0 / math.sqrt(q.shape[-1]))
-    if uses_kernel(impl, q):
-        from repro_torch.kernels import ops  # lazy: avoid import cycle
-
-        o, _ = ops.get_op("attention_fwd")(
-            q, k, v, mask=mask, scale=scale, block_k=block_k if skip else None, skip=skip,
-        )
-        return o
-    if impl == "naive":
-        return _naive(q, k, v, mask, scale)
-    from repro_torch.kernels.flashd_fwd import flashd_fwd_plain  # lazy: avoid cycle
-
-    o, _ = flashd_fwd_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        mask=mask, scale=scale, block_q=block_q, block_k=block_k, skip=skip,
-    )
-    return o.transpose(1, 2)
+    uses_kernel(impl, q)  # validates the impl name
+    if impl == "xla":
+        return _xla_attention(q, k, v, mask, scale)
+    return _FlashAttention.apply(q, k, v, mask, scale, impl, block_q, block_k, skip)
 
 
 def decode_attention(

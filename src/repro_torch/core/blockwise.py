@@ -15,8 +15,10 @@ query are processed together: rows are independent, so the q tiling of the
 reference changes nothing but which fully-masked tiles it prunes, and a KV
 tile masked for every row is an exact identity update here too.
 
-`blockwise_fa2` and `blockwise_backward` come with the FA2 baseline and the
-training slice (queue items K6 and K5).
+`blockwise_fa2` is the FlashAttention-2 baseline with the same tiling (the
+(m, ℓ, acc) carry and its acc/ℓ epilogue) and `blockwise_backward` the
+memory-efficient backward from the saved (O, Λ); they are the plain
+versions of the K6 and K5 kernels.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ __all__ = [
     "MaskSpec",
     "tile_live",
     "blockwise_flashd",
+    "blockwise_fa2",
+    "blockwise_backward",
     "merge_pair",
     "merge_partials",
 ]
@@ -127,6 +131,15 @@ def tile_live(mask: MaskSpec, iq: int, ik: int, block_q: int, block_k: int, kv_l
     return ik * block_k < kv_len
 
 
+def _pruned_tiles(mask: MaskSpec, sq: int, skv: int, block_q: int, block_k: int):
+    """(k0, k1) of every KV tile live for at least one q block: a tile dead
+    for every row is an exact identity update of each recurrence here."""
+    n_qb = -(-sq // block_q)
+    for ik in range(-(-skv // block_k)):
+        if any(tile_live(mask, iq, ik, block_q, block_k, skv) for iq in range(n_qb)):
+            yield ik * block_k, min((ik + 1) * block_k, skv)
+
+
 def _tile_stats(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-row (m_safe, p, λ_b) of a score tile with NaN-safe full-mask rows."""
     m = s.amax(dim=-1)
@@ -169,12 +182,7 @@ def blockwise_flashd(
         return o, lam
     ln_bk = math.log(block_k)
     q_pos = torch.arange(sq, device=q.device)
-    n_qb = -(-sq // block_q)
-    for ik in range(-(-skv // block_k)):
-        # a tile dead for every q block is an exact identity update: prune it
-        if not any(tile_live(mask, iq, ik, block_q, block_k, skv) for iq in range(n_qb)):
-            continue
-        k0, k1 = ik * block_k, min((ik + 1) * block_k, skv)
+    for k0, k1 in _pruned_tiles(mask, sq, skv, block_q, block_k):
         s = torch.matmul(qf, kf[..., k0:k1, :].transpose(-1, -2)) * scale
         keep = mask.keep(q_pos, torch.arange(k0, k1, device=q.device))
         if keep is not None:
@@ -196,6 +204,94 @@ def blockwise_flashd(
             lam_new = torch.where(skip_row, lam, lam_new)
         o, lam = o_new, lam_new
     return o, lam
+
+
+def blockwise_fa2(
+    q: torch.Tensor,  # [..., Sq, d]
+    k: torch.Tensor,  # [..., Skv, d]   (leading dims broadcast against q's)
+    v: torch.Tensor,  # [..., Skv, dv]
+    *,
+    mask: MaskSpec = MaskSpec("full"),
+    scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tiled FlashAttention-2 (the paper's baseline): (m, ℓ, acc) carry,
+    α = e^{m−m'} rescale per tile, acc/ℓ epilogue. Returns (O [..., Sq, dv],
+    Λ = m + ln ℓ [..., Sq]) in f32, Λ = NEG_INF and O = 0 on dead rows."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    sq, skv = q.shape[-2], k.shape[-2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2])
+    m = torch.full((*lead, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((*lead, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros(*lead, sq, v.shape[-1], dtype=torch.float32, device=q.device)
+    q_pos = torch.arange(sq, device=q.device)
+    for k0, k1 in _pruned_tiles(mask, sq, skv, block_q, block_k):
+        s = torch.matmul(qf, kf[..., k0:k1, :].transpose(-1, -2)) * scale
+        keep = mask.keep(q_pos, torch.arange(k0, k1, device=q.device))
+        if keep is not None:
+            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.clamp(m_new, min=NEG_INF / 2)
+        alpha = torch.where(m <= NEG_INF / 2, 0.0, torch.exp(m - m_safe))
+        p = torch.exp(s - m_safe[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.matmul(p, vf[..., k0:k1, :])
+        m = m_new
+    l_safe = torch.clamp(l, min=_TINY)
+    o = acc / l_safe[..., None]  # the FA2 epilogue FLASH-D eliminates
+    lam = torch.where(l > 0, m + torch.log(l_safe), torch.full_like(m, NEG_INF))
+    return o, lam
+
+
+def blockwise_backward(
+    q: torch.Tensor,  # [..., Sq, d]
+    k: torch.Tensor,  # [..., Skv, d]   (leading dims broadcast against q's)
+    v: torch.Tensor,  # [..., Skv, dv]
+    o: torch.Tensor,  # [..., Sq, dv]   saved forward output
+    lam: torch.Tensor,  # [..., Sq]     saved Λ
+    do: torch.Tensor,  # [..., Sq, dv]
+    *,
+    mask: MaskSpec = MaskSpec("full"),
+    scale: Optional[float] = None,
+    block_q: int = 128,
+    block_k: int = 128,
+):
+    """Memory-efficient attention backward from the saved (O, Λ).
+
+    P = exp(s − Λ) is exact and its exponent ≤ 0, so no max pass is
+    needed; rows with Λ ≤ NEG_INF/2 (dead) get P = 0. D = rowsum(dO∘O),
+    dS = P∘(dO·Vᵀ − D), dQ = dS·K·scale, dK = dSᵀ·Q·scale, dV = Pᵀ·dO.
+    Returns (dq [..., Sq, d], dk [lead, Skv, d], dv [lead, Skv, dv]) in the
+    input dtypes, where `lead` is the broadcast of the leading dims: dK and
+    dV are per query head, a GQA caller sums them over its group.
+    `block_q` only sets which KV tiles are pruned."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    sq, skv = q.shape[-2], k.shape[-2]
+    qf, kf, vf, of, dof = q.float(), k.float(), v.float(), o.float(), do.float()
+    lam = lam.float()
+    lead = torch.broadcast_shapes(q.shape[:-2], k.shape[:-2])
+    dsum = torch.sum(dof * of, dim=-1)  # D = rowsum(dO ∘ O)
+    dead = (lam <= NEG_INF / 2)[..., None]
+    dq = torch.zeros(*lead, sq, q.shape[-1], dtype=torch.float32, device=q.device)
+    dk = torch.zeros(*lead, skv, k.shape[-1], dtype=torch.float32, device=q.device)
+    dv = torch.zeros(*lead, skv, v.shape[-1], dtype=torch.float32, device=q.device)
+    q_pos = torch.arange(sq, device=q.device)
+    for k0, k1 in _pruned_tiles(mask, sq, skv, block_q, block_k):
+        k_b, v_b = kf[..., k0:k1, :], vf[..., k0:k1, :]
+        s = torch.matmul(qf, k_b.transpose(-1, -2)) * scale
+        keep = mask.keep(q_pos, torch.arange(k0, k1, device=q.device))
+        if keep is not None:
+            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+        p = torch.where(dead, 0.0, torch.exp(s - lam[..., None]))  # exponent ≤ 0
+        ds = p * (torch.matmul(dof, v_b.transpose(-1, -2)) - dsum[..., None])
+        dq = dq + torch.matmul(ds, k_b) * scale
+        dk[..., k0:k1, :] = torch.matmul(ds.transpose(-1, -2), qf) * scale
+        dv[..., k0:k1, :] = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def merge_pair(a, b):

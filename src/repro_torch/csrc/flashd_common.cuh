@@ -1,5 +1,5 @@
 // Shared device helpers of the FLASH-D Hopper kernels (flashd_fwd.cu,
-// flashd_decode.cu, flashd_varlen.cu). Everything is f32 arithmetic with the exact library
+// flashd_decode.cu, flashd_varlen.cu, flashd_bwd.cu, fa2_fwd.cu). Everything is f32 arithmetic with the exact library
 // functions (expf / logf / log1pf): the kernels are held to 5e-5 against
 // their plain PyTorch versions, so no --use_fast_math and no __expf.
 #pragma once
@@ -49,5 +49,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
+
+enum MaskKind { MASK_FULL = 0, MASK_CAUSAL = 1, MASK_LOCAL = 2, MASK_CHUNKED = 3 };
+
+// core/blockwise.py::MaskSpec over a q block × kv tile grid (the full-
+// sequence kernels K1, K5, K6): `kv_len` bounds the key axis
+struct AttnMask {
+  int kind, window, chunk, q_offset, kv_len;
+
+  // core/blockwise.py::tile_live for a (bq, bk) tiling
+  __device__ __forceinline__ bool tile_live(int iq, int bq, int ik, int bk) const {
+    const long long k_lo = (long long)ik * bk;
+    if (kind == MASK_FULL) return k_lo < kv_len;
+    const long long k_hi = k_lo + bk - 1;
+    const long long q_lo = (long long)iq * bq + q_offset;
+    const long long q_hi = q_lo + bq - 1;
+    bool live = k_lo <= q_hi;
+    if (kind == MASK_LOCAL) live = live && (q_lo - k_hi < window);
+    if (kind == MASK_CHUNKED) live = live && (floordiv(q_lo, chunk) <= floordiv(k_hi, chunk));
+    return live;
+  }
+
+  // kernels/flashd_fwd.py::_mask_bias as a predicate
+  __device__ __forceinline__ bool keep(int qpos, int kpos) const {
+    if (kpos >= kv_len) return false;
+    if (kind == MASK_FULL) return true;
+    const long long qp = (long long)qpos + q_offset;
+    const long long kp = kpos;
+    bool ok = kp <= qp;
+    if (kind == MASK_LOCAL) ok = ok && (qp - kp < window);
+    if (kind == MASK_CHUNKED) ok = ok && (floordiv(qp, chunk) == floordiv(kp, chunk));
+    return ok;
+  }
+};
 
 }  // namespace flashd

@@ -36,8 +36,6 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int ROWS = BQ / NWARPS;  // q rows per warp
 
-enum MaskKind { MASK_FULL = 0, MASK_CAUSAL = 1, MASK_LOCAL = 2, MASK_CHUNKED = 3 };
-
 struct FwdArgs {
   const void* q;
   const void* k;
@@ -55,32 +53,6 @@ struct FwdArgs {
   int skip;
   float skip_thr;  // θ + ln(block_k)
 };
-
-// core/blockwise.py::tile_live for the kernel's (BQ, block_k) tiling
-__device__ __forceinline__ bool tile_live(const FwdArgs& a, int iq, int ik) {
-  const long long k_lo = (long long)ik * a.block_k;
-  if (a.mask_kind == MASK_FULL) return k_lo < a.Skv;
-  const long long k_hi = k_lo + a.block_k - 1;
-  const long long q_lo = (long long)iq * BQ + a.q_offset;
-  const long long q_hi = q_lo + BQ - 1;
-  bool live = k_lo <= q_hi;
-  if (a.mask_kind == MASK_LOCAL) live = live && (q_lo - k_hi < a.window);
-  if (a.mask_kind == MASK_CHUNKED)
-    live = live && (floordiv(q_lo, a.chunk) <= floordiv(k_hi, a.chunk));
-  return live;
-}
-
-// flashd_fwd.py::_mask_bias as a predicate
-__device__ __forceinline__ bool keep(const FwdArgs& a, int qpos, int kpos) {
-  if (kpos >= a.Skv) return false;
-  if (a.mask_kind == MASK_FULL) return true;
-  const long long qp = (long long)qpos + a.q_offset;
-  const long long kp = kpos;
-  bool ok = kp <= qp;
-  if (a.mask_kind == MASK_LOCAL) ok = ok && (qp - kp < a.window);
-  if (a.mask_kind == MASK_CHUNKED) ok = ok && (floordiv(qp, a.chunk) == floordiv(kp, a.chunk));
-  return ok;
-}
 
 template <int HD>
 constexpr int smem_floats() {
@@ -102,6 +74,7 @@ __global__ void __launch_bounds__(NTHREADS) flashd_fwd_kernel(FwdArgs a) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int q0 = iq * BQ;
   const int bk = a.block_k;
+  const AttnMask mk{a.mask_kind, a.window, a.chunk, a.q_offset, a.Skv};
 
   const T* qb = (const T*)a.q + b * a.q_sb + hq * a.q_sh;
   const T* kb = (const T*)a.k + b * a.k_sb + hk * a.k_sh;
@@ -123,7 +96,7 @@ __global__ void __launch_bounds__(NTHREADS) flashd_fwd_kernel(FwdArgs a) {
 
   const int n_k = (a.Skv + bk - 1) / bk;
   for (int ik = 0; ik < n_k; ++ik) {
-    if (!tile_live(a, iq, ik)) continue;  // uniform across the CTA
+    if (!mk.tile_live(iq, BQ, ik, bk)) continue;  // uniform across the CTA
     const int k0 = ik * bk;
     __syncthreads();  // every warp is done with the previous tile
     for (int idx = tid; idx < bk * HD; idx += NTHREADS) {
@@ -160,7 +133,7 @@ __global__ void __launch_bounds__(NTHREADS) flashd_fwd_kernel(FwdArgs a) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int col = lane + 32 * j;
-        s[r][j] = (col < bk && keep(a, qpos, k0 + col)) ? s[r][j] * a.scale : NEG_INF;
+        s[r][j] = (col < bk && mk.keep(qpos, k0 + col)) ? s[r][j] * a.scale : NEG_INF;
       }
       m_b[r] = warp_max(fmaxf(s[r][0], s[r][1]));
       const bool first = lam_run[r] <= DEAD;

@@ -31,7 +31,7 @@ from typing import Dict, Iterable
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "build_dir", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flashd_fwd", "flashd_decode", "flashd_varlen")
+SOURCES = ("flashd_fwd", "flashd_decode", "flashd_varlen", "flashd_bwd", "fa2_fwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

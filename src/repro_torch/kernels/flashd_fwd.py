@@ -85,13 +85,15 @@ def flashd_fwd_plain(
 
 
 def check_no_grad(*tensors: torch.Tensor) -> None:
-    """The CUDA kernels are forward-only until the training slice (A11,
-    with the K5 backward): refuse inputs that would need a gradient rather
-    than return outputs that silently carry none."""
+    """A forward kernel's wrapper carries no gradient of its own: refuse
+    inputs that would need one rather than return outputs that silently
+    carry none. Training goes through `core.attention.flash_attention`,
+    whose autograd Function calls K1 / K6 with gradients off and runs K5 as
+    the backward; the decode kernels (K2–K4) serve only."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            "the FLASH-D CUDA kernels have no backward yet (training slice A11): "
-            "call under torch.no_grad(), or use attn_impl='flashd_plain'"
+            "the FLASH-D kernel wrappers have no backward of their own: call under "
+            "torch.no_grad(); training goes through core.attention.flash_attention"
         )
 
 
@@ -143,7 +145,9 @@ def flashd_fwd(
     `o` is a [B, Hq, Sq, d] view of a [B, Sq, Hq, d] (model layout) buffer,
     so `o.transpose(1, 2)` is contiguous. `block_k` (≤ 64, default 64,
     clamped to Skv like the reference) matters for skip: its threshold is
-    θ + ln(block_k), so compare with `flashd_fwd_plain(block_k=...)`."""
+    θ + ln(block_k), so compare with `flashd_fwd_plain(block_k=...)`. It
+    refuses inputs that need a gradient: `core.attention.flash_attention`
+    is the differentiable entry, with K5 as its backward."""
     global launches
     b, hq, sq, d = q.shape
     _, hkv, skv, dv = v.shape

@@ -2,7 +2,7 @@
 `repro/kernels/ops.py`.
 
 Each entry point is registered under a stable op name (`attention_fwd`,
-`decode`, `decode_paged`, `varlen`) and takes the MODEL layout ([B, S, H,
+`attention_bwd`, `decode`, `decode_paged`, `varlen`) and takes the MODEL layout ([B, S, H,
 d] activations, [B, S_max, Hkv, d] caches, [P, page, Hkv, d] page pools);
 the kernels read that layout through strides, so nothing here transposes
 a copy. Every op also has a registered fallback with the
@@ -11,8 +11,9 @@ and the `flashd_plain` impl use; `fallback_impl` maps a kernel impl name to
 it ('flashd_gpu' → 'flashd').
 
 The ops launch CUDA kernels and raise on CPU tensors: nothing here picks a
-path by catching an error. `attention_bwd` (K5) registers with the
-training slice (A11).
+path by catching an error. `attention_fwd` runs K1 (impl 'flashd') or K6
+(impl 'fa2'); `attention_bwd` runs K5, the one backward that serves both
+forwards, since both save the same Λ.
 """
 
 from __future__ import annotations
@@ -22,12 +23,15 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.core.blockwise import MaskSpec
+from repro_torch.kernels.fa2_fwd import fa2_fwd, fa2_fwd_plain
+from repro_torch.kernels.flashd_bwd import flashd_bwd, flashd_bwd_plain
 from repro_torch.kernels.flashd_decode import flashd_decode, flashd_decode_paged
 from repro_torch.kernels.flashd_fwd import flashd_fwd, flashd_fwd_plain
 from repro_torch.kernels.flashd_varlen import flashd_varlen
 
 __all__ = [
     "gpu_attention_fwd_batched",
+    "gpu_attention_bwd_batched",
     "gpu_decode",
     "gpu_decode_paged",
     "gpu_varlen",
@@ -97,6 +101,11 @@ def on_gpu() -> bool:
     return torch.cuda.is_available()
 
 
+def _bhsd(*xs):
+    """Model-layout [B, S, H, d] operands as [B, H, S, d] views (no copy)."""
+    return tuple(x.transpose(1, 2) for x in xs)
+
+
 @register_op("attention_fwd")
 def gpu_attention_fwd_batched(
     q: torch.Tensor,  # [B, Sq, Hq, d]   (model layout)
@@ -105,15 +114,42 @@ def gpu_attention_fwd_batched(
     *,
     mask: MaskSpec,
     scale: float,
+    impl: str = "flashd",
+    block_q: int | None = None,
     block_k: int | None = None,
     skip: bool = False,
 ):
-    """K1 on model-layout operands → (o [B, Sq, Hq, dv], Λ [B, Hq, Sq])."""
-    o, lam = flashd_fwd(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        mask=mask, scale=scale, block_k=block_k, skip=skip,
-    )
+    """K1 (impl 'flashd') or K6 (impl 'fa2') on model-layout operands →
+    (o [B, Sq, Hq, dv], Λ [B, Hq, Sq]). The kernels keep their own q tile
+    (block_q steers only the plain fallback); K1 takes block_k ≤ 64."""
+    if impl == "flashd":
+        o, lam = flashd_fwd(*_bhsd(q, k, v), mask=mask, scale=scale, block_k=block_k, skip=skip)
+    elif impl == "fa2":
+        o, lam = fa2_fwd(*_bhsd(q, k, v), mask=mask, scale=scale)
+    else:
+        raise ValueError(f"unknown attention kernel impl {impl!r} (flashd, fa2)")
     return o.transpose(1, 2), lam
+
+
+@register_op("attention_bwd")
+def gpu_attention_bwd_batched(
+    q: torch.Tensor,  # [B, Sq, Hq, d]   (model layout)
+    k: torch.Tensor,  # [B, Skv, Hkv, d]
+    v: torch.Tensor,  # [B, Skv, Hkv, dv]
+    o: torch.Tensor,  # [B, Sq, Hq, dv]  saved forward output
+    lam: torch.Tensor,  # [B, Hq, Sq] f32 saved Λ
+    do: torch.Tensor,  # [B, Sq, Hq, dv]
+    *,
+    mask: MaskSpec,
+    scale: float,
+    block_q: int | None = None,
+    block_k: int | None = None,
+):
+    """K5 from the saved (O, Λ) → (dq, dk, dv) in the model layout. One
+    backward serves every forward that saves Λ; the kernel keeps its own
+    tiles (block_q / block_k only steer the plain fallback)."""
+    dq, dk, dv = flashd_bwd(*_bhsd(q, k, v, o), lam, do.transpose(1, 2), mask=mask, scale=scale)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
 @register_op("decode")
@@ -185,13 +221,34 @@ def gpu_varlen(
 
 
 @register_fallback("attention_fwd")
-def plain_attention_fwd_batched(q, k, v, *, mask: MaskSpec, scale: float,
-                                block_k: int | None = None, skip: bool = False):
-    o, lam = flashd_fwd_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        mask=mask, scale=scale, block_k=block_k, skip=skip,
-    )
+def plain_attention_fwd_batched(q, k, v, *, mask: MaskSpec, scale: float, impl: str = "flashd",
+                                block_q: int | None = None, block_k: int | None = None,
+                                skip: bool = False):
+    if impl == "flashd":
+        o, lam = flashd_fwd_plain(*_bhsd(q, k, v), mask=mask, scale=scale, block_q=block_q,
+                                  block_k=block_k, skip=skip)
+    elif impl == "fa2":
+        o, lam = fa2_fwd_plain(*_bhsd(q, k, v), mask=mask, scale=scale, block_q=block_q,
+                               block_k=block_k)
+    else:
+        raise ValueError(f"unknown attention kernel impl {impl!r} (flashd, fa2)")
     return o.transpose(1, 2), lam
+
+
+@register_fallback("attention_bwd")
+def plain_attention_bwd_batched(q, k, v, o, lam, do, *, mask: MaskSpec, scale: float,
+                                block_q: int | None = None, block_k: int | None = None):
+    """`blockwise_backward` over (B, Hkv, G), dK/dV summed over G — the
+    reference's jnp fallback (`ops.py:318`) and K5's plain version."""
+    if block_q is None or block_k is None:
+        from repro_torch.kernels.tuning import choose_prefill_blocks
+
+        tiling = choose_prefill_blocks(q.shape[1], k.shape[1], q.shape[-1], v.shape[-1])
+        block_q = tiling.block_q if block_q is None else block_q
+        block_k = tiling.block_k if block_k is None else block_k
+    dq, dk, dv = flashd_bwd_plain(*_bhsd(q, k, v, o), lam, do.transpose(1, 2), mask=mask,
+                                  scale=scale, block_q=block_q, block_k=block_k)
+    return dq.transpose(1, 2), dk.transpose(1, 2), dv.transpose(1, 2)
 
 
 @register_fallback("decode")

@@ -52,7 +52,7 @@ class ModelConfig:
     attn_window: int = 0  # attn_local sliding window
     attn_chunk: int = 0  # attn_chunked chunk length
     rope_theta: float = 10000.0
-    attn_impl: str = "flashd"  # flashd | flashd_gpu | flashd_plain | naive
+    attn_impl: str = "flashd"  # one of core.attention.IMPLS
     attn_block_q: Optional[int] = None  # None → repro_torch.kernels.tuning picks
     attn_block_k: Optional[int] = None
     attn_skip: bool = False  # FLASH-D tile-skip predication
@@ -81,8 +81,8 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
-    # remat: none | dots | full (kept for the reference's field set; the
-    # forward-only port does not rematerialize)
+    # remat: none | dots | full — per-block activation checkpointing under
+    # autograd (models/transformer.py::_remat)
     remat: str = "full"
     # the reference's scan-vs-unrolled switch; the port always loops in
     # Python over the stacked layer axis

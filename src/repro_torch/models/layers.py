@@ -60,8 +60,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
 
 
 def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Token embedding (LLaMA convention: no sqrt(d) scaling)."""
-    return table[ids].to(dtype)
+    """Token embedding (LLaMA convention: no sqrt(d) scaling). Through
+    `F.embedding`, whose backward sums a row's gradients in a fixed order;
+    the backward of `table[ids]` accumulates in an order that varies from
+    run to run on the CPU, which would break the bitwise-resume contract."""
+    return torch.nn.functional.embedding(ids, table).to(dtype)
 
 
 def logits_from_hidden(h: torch.Tensor, head: torch.Tensor, true_vocab: int) -> torch.Tensor:

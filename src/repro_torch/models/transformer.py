@@ -219,20 +219,53 @@ def _head(params, cfg: ModelConfig):
     return params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat='dots': keep the matrix products,
+    recompute the rest (the reference's `dots_with_no_batch_dims_saveable`)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default, aten.bmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """The reference's `_remat` (transformer.py:249) for one block: 'none'
+    saves every activation; 'full' keeps only the block's input and
+    recomputes the block in the backward (so K1 runs twice per layer and
+    step); 'dots' keeps the matrix products too. Values are the same in all
+    three. Only where a gradient is being recorded: serving runs `fn`."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    import functools
+
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+    elif cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r} (none, dots, full)")
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def apply_lm(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool = False):
     """Forward pass → (logits [B, S, Vpad] f32, aux dict of zeros).
 
     last_only=True returns logits for the final position only — the
-    reference's prefill forward."""
+    reference's prefill forward. Under autograd each block is
+    rematerialized as `cfg.remat` says."""
     check_ported(cfg)
     tokens = batch["tokens"]
     h = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)
+    block = _remat(_apply_block, cfg)
     for key, pattern in _groups(cfg):
         for i in range(params[key]["pos0"]["norm1"].shape[0]):
             bp = _index(params[key], i)
             for j, spec in enumerate(pattern):
-                h = _apply_block(bp[f"pos{j}"], h, cfg, spec, positions)
+                h = block(bp[f"pos{j}"], h, cfg, spec, positions)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
@@ -241,7 +274,8 @@ def apply_lm(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool = F
 
 
 def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
-    """Causal-LM cross entropy, forward value only (labels == −1 masked)."""
+    """Causal-LM cross entropy (+ the MoE aux terms, zero for the ported
+    stacks) → (loss, metrics); labels == −1 are masked. Differentiable."""
     logits, aux = apply_lm(params, batch, cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -249,7 +283,8 @@ def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
     ce = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
-    return ce, {"ce": ce, **aux}
+    loss = ce + aux["moe_aux_loss"] + aux["moe_z_loss"]
+    return loss, {"ce": ce, **aux}
 
 
 # ---------------------------------------------------------------------------

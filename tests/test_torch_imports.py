@@ -39,6 +39,10 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.ops, repro_torch.kernels.ref, repro_torch.kernels._build\n"
         "import repro_torch.kernels.flashd_varlen, repro_torch.runtime, repro_torch.runtime.kvcache\n"
         "import repro_torch.configs, repro_torch.core\n"
+        "import repro_torch.optim, repro_torch.train, repro_torch.data, repro_torch.tree\n"
+        "import repro_torch.runtime.checkpoint, repro_torch.runtime.resilience\n"
+        "import repro_torch.launch.train, repro_torch.kernels.flashd_bwd\n"
+        "import repro_torch.kernels.fa2_fwd\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -52,7 +56,8 @@ def test_importing_builds_nothing():
     """Kernels build on first launch, never at import (there is no nvcc here)."""
     from repro_torch.kernels import _build
 
-    assert set(_build.SOURCES) == {"flashd_fwd", "flashd_decode", "flashd_varlen"}
+    assert set(_build.SOURCES) == {"flashd_fwd", "flashd_decode", "flashd_varlen", "flashd_bwd",
+                                   "fa2_fwd"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
     assert "-gencode" in _build.NVCC_FLAGS and "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
@@ -84,11 +89,25 @@ def test_entry_points_raise_without_a_card():
         Engine(params, cfg, ServeConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--arch", "qwen3-0.6b", "--smoke", "--requests", "1"])
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import TrainConfig, init_train_state, train_resilient
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_resilient(ckpt_dir="unused", model_cfg=cfg, train_cfg=TrainConfig(), data=None,
+                        total_steps=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke", "--steps", "1"])
 
 
 def test_port_files_cover_the_new_modules():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for mod in ("runtime/__init__.py", "runtime/kvcache.py", "kernels/flashd_varlen.py"):
+    for mod in ("runtime/__init__.py", "runtime/kvcache.py", "kernels/flashd_varlen.py",
+                "runtime/checkpoint.py", "runtime/resilience.py", "optim/adamw.py",
+                "optim/schedule.py", "data/pipeline.py", "train/train_step.py",
+                "train/resilient.py", "launch/train.py", "kernels/flashd_bwd.py",
+                "kernels/fa2_fwd.py", "tree.py"):
         assert f"src/repro_torch/{mod}" in names
 
 

@@ -152,19 +152,23 @@ def test_tuning_heuristics_are_the_reference():
 
 
 def test_registry_and_impl_routing():
-    assert ops.op_names() == ("attention_fwd", "decode", "decode_paged", "varlen")
+    assert ops.op_names() == ("attention_bwd", "attention_fwd", "decode", "decode_paged",
+                              "varlen")
     for name in ops.op_names():
         assert callable(ops.get_fallback(name))
     assert ops.fallback_impl("flashd_gpu") == "flashd"
+    assert ops.fallback_impl("fa2_gpu") == "fa2"
     assert ops.fallback_impl("naive") == "naive"
     with pytest.raises(KeyError):
-        ops.get_op("attention_bwd")  # the training slice (A11)
+        ops.get_op("ring_prefill")  # the context-parallel routes: multi-device slice (A13)
     x = torch.zeros(1)
-    assert not tatt.uses_kernel("flashd", x)  # CPU tensor: plain path
-    assert tatt.uses_kernel("flashd_gpu", x)  # always the kernel
-    assert not tatt.uses_kernel("flashd_plain", x)
+    for family in ("flashd", "fa2"):
+        assert not tatt.uses_kernel(family, x)  # CPU tensor: plain path
+        assert tatt.uses_kernel(f"{family}_gpu", x)  # always the kernel
+        assert not tatt.uses_kernel(f"{family}_plain", x)
+    assert not tatt.uses_kernel("xla", x) and not tatt.uses_kernel("naive", x)
     with pytest.raises(ValueError, match="not ported"):
-        tatt.uses_kernel("fa2", x)
+        tatt.uses_kernel("fa3", x)
 
 
 @pytest.mark.parametrize("mask", [("causal", 0, 0, 0), ("local", 5, 0, 0), ("full", 0, 0, 0)])

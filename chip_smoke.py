@@ -9,14 +9,19 @@ non-zero:
 
   1. the card's name and power limit (nvidia-smi);
   2. building the CUDA kernels from src/repro_torch/csrc with nvcc, one
-     process per source, all at once;
+     process per source, all at once; per library the tensor-core (HGMMA,
+     HMMA) and FFMA instruction counts of its SASS (cuobjdump), asserting
+     that K1 and K6 run on the tensor cores;
   3. K1 `flashd_fwd` against `flashd_fwd_plain` at qwen3-0.6b widths
      (Hq 16, Hkv 8, d 128, Sq = Skv = 2048): four mask kinds, q_offset,
-     skip on/off, fully masked rows; f32 and bf16; timed beside the
-     plain version and one `scaled_dot_product_attention` call;
+     skip on/off, fully masked rows; f32 and bf16; timed in both dtypes
+     beside the plain version and one `scaled_dot_product_attention` call
+     in the same dtype, with three bounds (f32 on the CUDA cores, 3xTF32
+     and bf16 on the tensor cores) and the achieved TFLOP/s;
   4. K2 `flashd_decode` against `flashd_decode_plain` (B 8, S_max 4096,
      ragged cache_len with 0 and 1; window, chunk, start, return_lam,
-     fused and unfused, bf16), timed at the engine's decode shape;
+     fused and unfused, bf16), timed at the engine's decode shape (f32 and
+     bf16; phases 7, 8 and 10 time bf16 beside f32 too);
   5. full-width qwen3-0.6b in f32 on seeded random weights: apply_lm
      (last_only) and the engine (`generate`, `serve`), kernels against
      the plain path — greedy tokens identical, logits within bound, both
@@ -40,8 +45,9 @@ non-zero:
      S of 1000, dead rows; f32 and bf16; deterministic; timed beside the
      plain version and the backward of one `scaled_dot_product_attention`;
  11. K6 `fa2_fwd` against `fa2_fwd_plain` and against K1 (O and Λ), and
-     K1 and K6 timed in turns at phase 3's shape (the paper's FLASH-D vs
-     FA2 comparison on this card);
+     K1 and K6 timed in turns at phase 3's shape in f32 and in bf16 (the
+     paper's FLASH-D vs FA2 comparison on this card), beside SDPA in both
+     dtypes and the three bounds;
  12. full-width qwen3-0.6b training, f32: the same 4 `make_train_step`
      steps on the kernel path (K1 forward, K5 backward), the plain path
      and the FA2 path (K6 + K5), loss and grad norm agreeing step by step;
@@ -77,7 +83,9 @@ GRAD_BF16 = 2.0 ** -7  # K5 bf16: one bf16 rounding of the largest gradient entr
 TRAIN_REL = (1e-5, 1e-4)  # loss / grad norm, kernel vs plain: step 0, after AdamW updates
 BF16_LOSS_REL = 1e-2  # bf16 step-0 loss vs f32: 8-bit mantissa, averaged over 2048 tokens
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # f32 CUDA cores; bf16 tensor cores
+# dense peaks: f32 on the CUDA cores; TF32 and bf16 on the tensor cores
+PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
+TC_KERNELS = ("flashd_fwd", "fa2_fwd")  # the sources whose products run on the tensor cores
 
 
 def _line(phase: int, text: str) -> None:
@@ -107,6 +115,67 @@ def _time_ms(fn, reps: int = 10, flush=None) -> float:
 
 def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _cuobjdump(nvcc: str) -> str:
+    """cuobjdump beside nvcc, else the copy in Triton's package; raises if
+    neither exists (phase 2's tensor-core check does not skip)."""
+    cand = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if os.path.exists(cand):
+        return cand
+    try:
+        import triton
+
+        cand = os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                            "cuobjdump")
+    except ImportError:
+        cand = ""
+    if cand and os.path.exists(cand):
+        return cand
+    raise RuntimeError("cuobjdump not found beside nvcc nor in triton/backends/nvidia/bin")
+
+
+def _sass_counts(cuobjdump: str, libs: dict) -> dict:
+    """Tensor-core (HGMMA, HMMA) and FFMA instructions in each library's
+    SASS ({name: path}), one cuobjdump process per library, all at once."""
+    import re
+
+    counts = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(next(iter(libs.values())))) as tmp:
+        procs = {}
+        for name, path in libs.items():  # output to files: pipes would serialise the dumps
+            with open(os.path.join(tmp, name), "w") as out:
+                procs[name] = subprocess.Popen([cuobjdump, "-sass", path], stdout=out,
+                                               stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError(f"cuobjdump -sass {libs[name]} failed: {err}")
+            with open(os.path.join(tmp, name)) as f:
+                found = re.findall(r"\b(HGMMA|HMMA|FFMA)\b", f.read())
+            counts[name] = {op: found.count(op) for op in ("HGMMA", "HMMA", "FFMA")}
+    return counts
+
+
+def _attn_bounds(ops: float, bytes_f32: float, bytes_bf16: float) -> dict:
+    """(ms, "operations" or "bytes") bounds of a forward attention of `ops`
+    flops (both products): f32 on the CUDA cores, f32 as 3xTF32 (three TF32
+    products) and bf16 on the tensor cores, each the larger of its
+    operations and its bytes."""
+    def bound(op_s, byte_s):
+        return (1e3 * max(op_s, byte_s), "operations" if op_s >= byte_s else "bytes")
+
+    return {"f32_cuda": bound(ops / PEAK_OPS["float32"], bytes_f32 / HBM_BYTES_PER_S),
+            "3xtf32": bound(3 * ops / PEAK_OPS["tf32"], bytes_f32 / HBM_BYTES_PER_S),
+            "bf16": bound(ops / PEAK_OPS["bfloat16"], bytes_bf16 / HBM_BYTES_PER_S)}
+
+
+def _fmt_bounds(bounds: dict, ops: float, ms: dict) -> str:
+    """The three bounds and the achieved TFLOP/s of the timed calls in `ms`."""
+    rates = ", ".join(f"{name} {ops / (t * 1e-3) / 1e12:.1f}" for name, t in ms.items())
+    named = {"f32_cuda": "f32 on the CUDA cores", "3xtf32": "3xTF32", "bf16": "bf16"}
+    return ("bounds " + ", ".join(f"{named[k]} {t:.4f} ms ({by})" for k, (t, by) in bounds.items())
+            + f"; achieved TFLOP/s {rates}")
 
 
 class _Phase:
@@ -145,10 +214,12 @@ def _paged_pool(gen, dev, lengths, n_tbl, page, hkv, d, dtype):
     return kp, vp, tbl, ks, vs
 
 
-def _breakdown(label: str, step, steps: int = 10, train: bool = False) -> str:
+def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=()) -> str:
     """`step()` of the engine's (or the trainer's) shape: host wall time per
     step, device-busy time per step (torch.profiler kernel time), the
-    device's idle share, and the kernels that take the device time."""
+    device's idle share, and the kernels that take the device time (with
+    the share and ms per step of each kernel whose name contains a string
+    of `watch`)."""
     import contextlib
 
     import torch
@@ -185,9 +256,12 @@ def _breakdown(label: str, step, steps: int = 10, train: bool = False) -> str:
         else:
             classes["other"] += us
     by_class = ", ".join(f"{k} {100 * us / total_us:.1f}%" for k, us in classes.items())
+    watched = "".join(
+        f"; {w} {100 * us / total_us:.1f}% ({us / 1e3 / steps:.3f} ms/step)"
+        for w, us in ((w, sum(t for name, t in rows if w in name)) for w in watch))
     return (f"{label}: host {wall_ms:.2f} ms/step, device busy {busy_ms:.3f} ms/step, device "
             f"idle {100 * (1 - busy_ms / wall_ms):.1f}%; device time by class: {by_class}; "
-            f"by kernel: {top}")
+            f"by kernel: {top}{watched}")
 
 
 def main() -> int:
@@ -255,7 +329,12 @@ def main() -> int:
     secs = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(f"{n}: " + _build.ptxas_report(n).replace("\n", " | ") for n in _build.SOURCES)
-    _line(2, f"built {sorted(secs)} in {build_s:.1f} s (per source {secs}); ptxas: {ptxas} {ph}")
+    cuobjdump = _cuobjdump(_build.nvcc())
+    sass = _sass_counts(cuobjdump, {n: str(_build.lib_path(n)) for n in _build.SOURCES})
+    for n in TC_KERNELS:
+        assert sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, ("no tensor-core instruction", n, sass[n])
+    _line(2, f"built {sorted(secs)} in {build_s:.1f} s (per source {secs}); SASS instruction "
+             f"counts (cuobjdump -sass) {sass}; ptxas: {ptxas} {ph}")
 
     # ---- 3. K1 against its plain version ----
     ph = _Phase()
@@ -301,18 +380,28 @@ def main() -> int:
     k1_ms = _time_ms(lambda: k1.flashd_fwd(qt, kt, vt, mask=causal), flush=flush)
     k1_plain_ms = _time_ms(lambda: k1.flashd_fwd_plain(qt, kt, vt, mask=causal), flush=flush)
     k1_bf16_ms = _time_ms(lambda: k1.flashd_fwd(qb, kb, vb, mask=causal), flush=flush)
-    qs, ks, vs = q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-    k1_lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                                enable_gqa=True), flush=flush)
+    # SDPA's own operands, contiguous [B, H, S, d], kept for phase 11 too
+    sdpa_x = {torch.float32: tuple(x.transpose(1, 2).contiguous() for x in (q, k, v))}
+    sdpa_x[torch.bfloat16] = tuple(x.bfloat16() for x in sdpa_x[torch.float32])
+
+    def sdpa_ms(dtype):
+        x = sdpa_x[dtype]
+        return _time_ms(lambda: F.scaled_dot_product_attention(*x, is_causal=True, enable_gqa=True),
+                        flush=flush)
+
+    k1_lib_ms, k1_lib_bf16_ms = sdpa_ms(torch.float32), sdpa_ms(torch.bfloat16)
     pairs = b * s * (s + 1) // 2  # causal (q, k) pairs this run computes
     k1_ops = 4 * d * pairs * hq  # QKᵀ and PV, 2 flops per multiply-add
-    k1_bytes = 4 * (2 * b * s * hq * d + 2 * b * s * hkv * d) + 4 * b * hq * s
-    k1_bound = 1e3 * max(k1_ops / PEAK_OPS["float32"], k1_bytes / HBM_BYTES_PER_S)
-    k1_bound_by = "operations" if k1_ops / PEAK_OPS["float32"] > k1_bytes / HBM_BYTES_PER_S else "bytes"
+    k1_elems = 2 * b * s * hq * d + 2 * b * s * hkv * d  # q, O; k, v
+    fwd_bounds = _attn_bounds(k1_ops, 4 * k1_elems + 4 * b * hq * s, 2 * k1_elems + 4 * b * hq * s)
+    k1_bound, k1_bound_by = fwd_bounds["3xtf32"]  # the f32 kernels' datapath
     _line(3, f"K1 flashd_fwd f32 max|Δ| vs plain: {', '.join(report)} (bound {F32_TOL}); "
-             f"bf16 {e_bf16:.2e} (bound {BF16_TOL}); causal S={s} f32: kernel {k1_ms:.3f} ms, "
-             f"plain {k1_plain_ms:.3f} ms, sdpa {k1_lib_ms:.3f} ms, bound {k1_bound:.3f} ms "
-             f"({k1_bound_by}); bf16 kernel {k1_bf16_ms:.3f} ms {ph}")
+             f"bf16 {e_bf16:.2e} (bound {BF16_TOL}); causal S={s}: f32 kernel {k1_ms:.4f} ms, "
+             f"plain {k1_plain_ms:.3f} ms, sdpa {k1_lib_ms:.4f} ms; bf16 kernel {k1_bf16_ms:.4f} "
+             f"ms, sdpa {k1_lib_bf16_ms:.4f} ms; "
+             + _fmt_bounds(fwd_bounds, k1_ops, {"kernel f32": k1_ms, "kernel bf16": k1_bf16_ms,
+                                                "sdpa f32": k1_lib_ms, "sdpa bf16": k1_lib_bf16_ms})
+             + f" {ph}")
 
     # ---- 4. K2 against its plain version ----
     ph = _Phase()
@@ -363,6 +452,10 @@ def main() -> int:
     qe4 = qe[:, :, None]
     k2_lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         qe4, ket, vet, enable_gqa=True), reps=20, flush=flush)
+    qeb, keb, veb = qe.bfloat16(), ket.bfloat16(), vet.bfloat16()
+    k2_bf16_ms = _time_ms(lambda: k2.flashd_decode(qeb, keb, veb, cle), reps=20, flush=flush)
+    k2_lib_bf16_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qeb[:, :, None], keb, veb, enable_gqa=True), reps=20, flush=flush)
     live = int(cle.sum())
     k2_bytes = 2 * live * hkv * d * 4 + 2 * be * hq * d * 4
     k2_ops = 4 * d * live * hq
@@ -372,7 +465,8 @@ def main() -> int:
              f"{fused_vs_unfused:.2e}; bf16 {e2_bf16:.2e} (bound {BF16_TOL}); at B {be}, "
              f"S_max {se}, {live} live tokens f32: kernel {k2_ms * 1e3:.1f} us, plain "
              f"{k2_plain_ms * 1e3:.1f} us, sdpa {k2_lib_ms * 1e3:.1f} us, bound "
-             f"{k2_bound * 1e3:.2f} us (bytes) {ph}")
+             f"{k2_bound * 1e3:.2f} us (bytes); bf16: kernel {k2_bf16_ms * 1e3:.1f} us, sdpa "
+             f"{k2_lib_bf16_ms * 1e3:.1f} us {ph}")
 
     # ---- 5. full-width qwen3-0.6b, f32: kernels vs plain, tokens identical ----
     ph = _Phase()
@@ -504,6 +598,13 @@ def main() -> int:
     k3_sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(qe4, kg, vg, enable_gqa=True),
                           reps=20, flush=flush)
     k3_lib_ms = k3_gather_ms + k3_sdpa_ms
+    kpb, vpb = kp.bfloat16(), vp.bfloat16()
+    k3_bf16_ms = _time_ms(lambda: k2.flashd_decode_paged(qeb, kpb, vpb, tbl, cle3), reps=20,
+                          flush=flush)
+    kgb, vgb = gather_pages(kpb, tbl).transpose(1, 2), gather_pages(vpb, tbl).transpose(1, 2)
+    k3_lib_bf16_ms = _time_ms(lambda: (gather_pages(kpb, tbl), gather_pages(vpb, tbl)), reps=20,
+                              flush=flush) + _time_ms(lambda: F.scaled_dot_product_attention(
+                                  qeb[:, :, None], kgb, vgb, enable_gqa=True), reps=20, flush=flush)
     live3 = be * max_len
     k3_bytes = 2 * live3 * hkv * d * 4 + 2 * be * hq * d * 4
     k3_ops = 4 * d * live3 * hq
@@ -513,7 +614,8 @@ def main() -> int:
              f"max_len {max_len}, page {page}, {live3} live tokens f32: kernel "
              f"{k3_ms * 1e3:.1f} us, plain {k3_plain_ms * 1e3:.1f} us, library {k3_lib_ms * 1e3:.1f} us (gather_pages "
              f"{k3_gather_ms * 1e3:.1f} us + sdpa {k3_sdpa_ms * 1e3:.1f} us), bound "
-             f"{k3_bound * 1e3:.2f} us (bytes) {ph}")
+             f"{k3_bound * 1e3:.2f} us (bytes); bf16: kernel {k3_bf16_ms * 1e3:.1f} us, library "
+             f"{k3_lib_bf16_ms * 1e3:.1f} us {ph}")
 
     # ---- 8. K4 against its plain version, on packs from the engine's packer ----
     ph = _Phase()
@@ -587,6 +689,14 @@ def main() -> int:
     k4_lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         qv[:, :, None], kg, vg, attn_mask=vis[:, None, None, :], enable_gqa=True),
         reps=20, flush=flush)
+    qvb, kpb, vpb = qv.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    k4_bf16_ms = _time_ms(lambda: k4.flashd_varlen(qvb, kpb, vpb, tbl, sid, qp, kvl,
+                                                   block_q=mixed_bq), reps=20, flush=flush)
+    kgb, vgb = kg.bfloat16(), vg.bfloat16()
+    k4_lib_bf16_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        qvb[:, :, None], kgb, vgb, attn_mask=vis[:, None, None, :], enable_gqa=True),
+        reps=20, flush=flush)
+    del kgb, vgb
     n_vis = int(vis[qp >= 0].sum())  # (row, key) pairs this pack needs
     k4_ops = 4 * d * hq * n_vis
     live_tok = sum(int(kvl_np[sl]) for sl in {seg.slot for seg in mixed_plan.segments})
@@ -600,7 +710,8 @@ def main() -> int:
              f"mixed-step pack (T {len(sid_np)}, block_q {mixed_bq}, {n_rows} rows, {live_tok} "
              f"live tokens) f32: kernel {k4_ms * 1e3:.1f} us, plain {k4_plain_ms * 1e3:.1f} us, "
              f"sdpa with a boolean mask over the gathered rows {k4_lib_ms * 1e3:.1f} us, bound "
-             f"{k4_bound * 1e3:.2f} us ({k4_bound_by}) {ph}")
+             f"{k4_bound * 1e3:.2f} us ({k4_bound_by}); bf16: kernel {k4_bf16_ms * 1e3:.1f} us, "
+             f"sdpa {k4_lib_bf16_ms * 1e3:.1f} us {ph}")
 
     # ---- 9. the paged and mixed loops at full width: kernels vs plain ----
     ph = _Phase()
@@ -733,6 +844,14 @@ def main() -> int:
     k5_lib_ms = _time_ms(lambda: torch.autograd.grad(o_l, (q_l, k_l, v_l), do_l, retain_graph=True),
                          flush=flush)
     del q_l, k_l, v_l, o_l, do_l
+    args_b = bwd_operands(st, st, torch.bfloat16, causal)
+    k5_bf16_ms = _time_ms(lambda: k5.flashd_bwd(*args_b, mask=causal), flush=flush)
+    q_l, k_l, v_l = (x.contiguous().requires_grad_() for x in args_b[:3])
+    o_l = F.scaled_dot_product_attention(q_l, k_l, v_l, is_causal=True, enable_gqa=True)
+    do_l = args_b[5].contiguous()
+    k5_lib_bf16_ms = _time_ms(lambda: torch.autograd.grad(o_l, (q_l, k_l, v_l), do_l,
+                                                          retain_graph=True), flush=flush)
+    del q_l, k_l, v_l, o_l, do_l, args_b
     k5_pairs = bt * st * (st + 1) // 2
     k5_ops = 10 * d * k5_pairs * hq  # s, dO·Vᵀ, dQ, dK, dV: 2·d flops each per visible pair
     # q, O, dO, k, v and Λ read once; dQ, dK, dV written once
@@ -743,7 +862,8 @@ def main() -> int:
               f"{', '.join(k5_report)} (f32 bound rtol {GRAD_RTOL} atol {GRAD_ATOL} per entry; "
               f"bf16 {GRAD_BF16:.4f}·max|grad|); bitwise equal on a second run: {deterministic}; "
               f"causal S={st} f32: kernel {k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms, sdpa "
-              f"backward {k5_lib_ms:.3f} ms, bound {k5_bound:.3f} ms ({k5_bound_by}) {ph}")
+              f"backward {k5_lib_ms:.3f} ms, bound {k5_bound:.3f} ms ({k5_bound_by}); bf16: kernel "
+              f"{k5_bf16_ms:.3f} ms, sdpa backward {k5_lib_bf16_ms:.3f} ms {ph}")
 
     # ---- 11. K6 against its plain version and K1; K1 vs K6 at phase 3's shape ----
     ph = _Phase()
@@ -775,17 +895,26 @@ def main() -> int:
     q16, k16, v16 = qt.bfloat16(), kt.bfloat16(), vt.bfloat16()
     e6_bf16 = _err(k6.fa2_fwd(q16, k16, v16)[0], k6.fa2_fwd_plain(q16, k16, v16)[0])
     assert e6_bf16 <= BF16_TOL, ("bf16 fa2", e6_bf16)
-    turns = {"K1": [], "K6": []}
-    for who in ("K1", "K6", "K6", "K1"):  # in turns, on one card
-        fn = k1.flashd_fwd if who == "K1" else k6.fa2_fwd
-        turns[who].append(_time_ms(lambda: fn(qt, kt, vt, mask=causal), flush=flush))
-    k1_turn_ms, k6_ms = min(turns["K1"]), min(turns["K6"])
+    turns = {}  # (kernel, dtype) → ms, in turns K1 K6 K6 K1 on one card
+    for dtype, x in (("f32", (qt, kt, vt)), ("bf16", (q16, k16, v16))):
+        for who in ("K1", "K6", "K6", "K1"):
+            fn = k1.flashd_fwd if who == "K1" else k6.fa2_fwd
+            turns.setdefault((who, dtype), []).append(
+                _time_ms(lambda: fn(*x, mask=causal), flush=flush))
+    best = {key: min(ts) for key, ts in turns.items()}
+    k1_turn_ms, k6_ms, k6_bf16_ms = best["K1", "f32"], best["K6", "f32"], best["K6", "bf16"]
+    k6_lib_ms, k6_lib_bf16_ms = sdpa_ms(torch.float32), sdpa_ms(torch.bfloat16)
     k6_plain_ms = _time_ms(lambda: k6.fa2_fwd_plain(qt, kt, vt, mask=causal), flush=flush)
+    in_turns = "; ".join(f"{who} {dt} {ts}" for (who, dt), ts in turns.items())
     _line(11, f"K6 fa2_fwd f32 max|Δ| vs plain: {', '.join(k6_report)} (bound {F32_TOL}); bf16 "
-              f"{e6_bf16:.2e} (bound {BF16_TOL}); causal S={s} f32, timed in turns K1 K6 K6 K1: "
-              f"K1 {turns['K1']} ms, K6 {turns['K6']} ms (FLASH-D / FA2 = "
-              f"{k1_turn_ms / k6_ms:.3f}), plain FA2 {k6_plain_ms:.3f} ms, sdpa {k1_lib_ms:.3f} "
-              f"ms (phase 3), bound {k1_bound:.3f} ms {ph}")
+              f"{e6_bf16:.2e} (bound {BF16_TOL}); causal S={s}, timed in turns K1 K6 K6 K1 (ms): "
+              f"{in_turns}; FLASH-D / FA2 = {k1_turn_ms / k6_ms:.3f} f32, "
+              f"{best['K1', 'bf16'] / k6_bf16_ms:.3f} bf16; plain FA2 {k6_plain_ms:.3f} ms; sdpa "
+              f"{k6_lib_ms:.4f} ms f32, {k6_lib_bf16_ms:.4f} ms bf16; "
+              + _fmt_bounds(fwd_bounds, k1_ops, {"K6 f32": k6_ms, "K6 bf16": k6_bf16_ms,
+                                                 "K1 f32": k1_turn_ms,
+                                                 "K1 bf16": best["K1", "bf16"]})
+              + f" {ph}")
 
     # ---- 12. full-width qwen3-0.6b training: kernel, plain and FA2 paths ----
     ph = _Phase()
@@ -823,7 +952,8 @@ def main() -> int:
     train_launches = {"flashd_fwd": k1.launches, "flashd_bwd": k5.launches}
     assert min(train_launches.values()) > 0 and k6.launches == 0, train_launches
     train_profile = _breakdown(f"train step B{bt} S{st}", lambda: step_k(state_k, batches[0]),
-                               steps=2, train=True)
+                               steps=2, train=True,
+                               watch=("flashd_fwd_kernel", "flashd_bwd_"))
     del state_k, step_k
     seen = counts()
     _, _, curve_p, secs_p = train(dataclasses.replace(cfg, attn_impl="flashd_plain"))
@@ -893,41 +1023,46 @@ def main() -> int:
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
          "replaces": "src/repro/kernels/flashd_fwd.py:166", "launches": launches["flashd_fwd"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_bound_by, "library_ms": k1_lib_ms,
-         "shape": f"B{b} Hq{hq} Hkv{hkv} d{d} Sq=Skv={s} causal f32"},
+         "bound_by": k1_bound_by, "library_ms": k1_lib_ms, "bf16_ms": k1_bf16_ms,
+         "bf16_library_ms": k1_lib_bf16_ms, "bf16_bound_ms": fwd_bounds["bf16"][0],
+         "f32_cuda_core_bound_ms": fwd_bounds["f32_cuda"][0],
+         "shape": f"B{b} Hq{hq} Hkv{hkv} d{d} Sq=Skv={s} causal f32 (3xTF32 on the tensor "
+                  f"cores; bound_ms is its 3xTF32 bound) and bf16"},
         {"name": "flashd_decode", "route": "cuda", "source": "src/repro_torch/csrc/flashd_decode.cu",
          "replaces": "src/repro/kernels/flashd_decode.py:205",
          "launches": launches["flashd_decode"], "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": "bytes",
-         "library_ms": k2_lib_ms,
+         "library_ms": k2_lib_ms, "bf16_ms": k2_bf16_ms, "bf16_library_ms": k2_lib_bf16_ms,
          "shape": f"B{be} Hq{hq} Hkv{hkv} d{d} S_max{se} {live} live tokens f32"},
         {"name": "flashd_decode_paged", "route": "cuda",
          "source": "src/repro_torch/csrc/flashd_decode.cu",
          "replaces": "src/repro/kernels/flashd_decode.py:380",
          "launches": pool_launches["flashd_decode_paged"], "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": "bytes",
-         "library_ms": k3_lib_ms,
+         "library_ms": k3_lib_ms, "bf16_ms": k3_bf16_ms, "bf16_library_ms": k3_lib_bf16_ms,
          "shape": f"B{be} Hq{hq} Hkv{hkv} d{d} page 64, 8 pages/seq, {live3} live tokens f32"},
         {"name": "flashd_varlen", "route": "cuda",
          "source": "src/repro_torch/csrc/flashd_varlen.cu",
          "replaces": "src/repro/kernels/flashd_varlen.py:159",
          "launches": pool_launches["flashd_varlen"], "max_abs_err": k4_err, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_bound_by,
-         "library_ms": k4_lib_ms,
+         "library_ms": k4_lib_ms, "bf16_ms": k4_bf16_ms, "bf16_library_ms": k4_lib_bf16_ms,
          "shape": f"T{len(sid_np)} block_q {mixed_bq} ({n_rows} rows: 3 decode + a 16-row chunk) "
                   f"Hq{hq} Hkv{hkv} d{d} page 64, {live_tok} live tokens f32"},
         {"name": "flashd_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_bwd.cu",
          "replaces": "src/repro/kernels/flashd_bwd.py:120",
          "launches": train_launches["flashd_bwd"], "max_abs_err": k5_err, "ms": k5_ms,
          "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_bound_by,
-         "library_ms": k5_lib_ms,
+         "library_ms": k5_lib_ms, "bf16_ms": k5_bf16_ms, "bf16_library_ms": k5_lib_bf16_ms,
          "shape": f"B{bt} Hq{hq} Hkv{hkv} d{d} Sq=Skv={st} causal f32 (dQ, dK, dV)"},
         {"name": "fa2_fwd", "route": "cuda", "source": "src/repro_torch/csrc/fa2_fwd.cu",
          "replaces": "src/repro/kernels/fa2_fwd.py:101", "launches": train_launches["fa2_fwd"],
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_bound_by, "library_ms": k1_lib_ms,
-         "shape": f"B{b} Hq{hq} Hkv{hkv} d{d} Sq=Skv={s} causal f32 (K1 in the same turns: "
-                  f"{k1_turn_ms:.3f} ms)"},
+         "bound_by": k1_bound_by, "library_ms": k6_lib_ms, "bf16_ms": k6_bf16_ms,
+         "bf16_library_ms": k6_lib_bf16_ms, "bf16_bound_ms": fwd_bounds["bf16"][0],
+         "f32_cuda_core_bound_ms": fwd_bounds["f32_cuda"][0],
+         "shape": f"B{b} Hq{hq} Hkv{hkv} d{d} Sq=Skv={s} causal f32 and bf16 (K1 in the same "
+                  f"turns: {k1_turn_ms:.4f} ms f32, {best['K1', 'bf16']:.4f} ms bf16)"},
     ]
     kernels[0]["train_launches"] = train_launches["flashd_fwd"]
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}")

@@ -28,7 +28,9 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build", "load", "build_dir", "ptxas_report"]
+__all__ = [
+    "SOURCES", "NVCC_FLAGS", "build", "load", "build_dir", "lib_path", "nvcc", "ptxas_report",
+]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flashd_fwd", "flashd_decode", "flashd_varlen", "flashd_bwd", "fa2_fwd")
@@ -45,7 +47,8 @@ def build_dir() -> Path:
     return Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """nvcc on PATH, else under $CUDA_HOME (default /usr/local/cuda)."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -55,7 +58,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """build/kernels/<name>-<hash>.so: the library this source, the headers
+    and the flags build to."""
     h = hashlib.sha256()
     for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.name.encode())
@@ -73,11 +78,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        lib = _lib_path(name)
+        lib = lib_path(name)
         if lib.exists():
             continue
         tmp = lib.parent / f"{lib.name}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                         text=True), tmp, lib)
     secs = {name: 0.0 for name in names}
@@ -98,7 +103,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of csrc/<name>.cu, built first if missing."""
     if name not in _LOADED:
-        lib = _lib_path(name)
+        lib = lib_path(name)
         if not lib.exists():
             build([name])
         _LOADED[name] = ctypes.CDLL(str(lib))
@@ -107,7 +112,7 @@ def load(name: str) -> ctypes.CDLL:
 
 def ptxas_report(name: str) -> str:
     """ptxas' register / shared-memory / spill lines from the last build."""
-    log = _lib_path(name).with_suffix(".log")
+    log = lib_path(name).with_suffix(".log")
     if not log.exists():
         return ""
     return "\n".join(

@@ -5,19 +5,21 @@ Replaces the Pallas TPU kernel `repro/kernels/fa2_fwd.py::fa2_fwd_pallas`
 (`_fa2_kernel`). The CUDA source is `csrc/fa2_fwd.cu`.
 
 Design. The paper's comparison is controlled: the two kernels share the
-tiling and differ only in the datapath. So K6 is K1's CTA structure (a CTA
-per (q block of 32 rows, q head, batch row) looping over KV tiles of 64
-keys), loads, masks and `tile_live` pruning, with FA2's carry in place of
-FLASH-D's: a running max m and sum ℓ per row, the α = e^{m−m'} rescale of
-ℓ and acc per tile, and the acc/ℓ division at the end. It returns
-(O, Λ = m + ln ℓ) with FLASH-D's dead-row convention (Λ = NEG_INF, O = 0),
-so K5 serves its backward as it serves K1's. The carry code is K6's own:
-nothing of K1's datapath is shared. There is no skip option (the reference
-FA2 kernel has none).
+tiling and differ only in the datapath. So K6 runs K1's tile machine
+(`csrc/attn_tc.cuh`: a CTA per (q block of 64 rows, q head, batch row)
+looping over KV tiles of 64 keys, both products on the tensor cores —
+bf16 m16n8k16, f32 as 3xTF32 — a cp.async K/V ring, masks and `tile_live`
+pruning), with FA2's carry in place of FLASH-D's: a running max m and sum
+ℓ per row, the α = e^{m−m'} rescale of ℓ and acc per tile, and the acc/ℓ
+division at the end. It returns (O, Λ = m + ln ℓ) with FLASH-D's dead-row
+convention (Λ = NEG_INF, O = 0), so K5 serves its backward as it serves
+K1's. The carry code is K6's own: nothing of K1's carry is shared. There
+is no skip option (the reference FA2 kernel has none). Operands obey K1's
+16-byte copy alignment (`check_copy_alignment`).
 
-Bound. K1's: 4·d flops per visible (q, k) pair over 67 TFLOP/s in f32 (the
-CUDA cores run both products as FMA here). Its times, beside K1's at the
-same shape, are in PERF.md.
+Bound. K1's: 4·d flops per visible (q, k) pair over 989 TFLOP/s in bf16,
+three TF32 products over 495 TFLOP/s in f32. Its times, beside K1's at
+the same shape, are in PERF.md.
 
 `launches` counts kernel launches.
 """
@@ -30,7 +32,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.blockwise import MaskSpec, blockwise_fa2
-from repro_torch.kernels.flashd_fwd import _MASK_KINDS, check_no_grad, check_operands
+from repro_torch.kernels.flashd_fwd import (
+    _MASK_KINDS,
+    check_copy_alignment,
+    check_no_grad,
+    check_operands,
+)
 
 __all__ = ["fa2_fwd", "fa2_fwd_plain", "launches"]
 
@@ -94,6 +101,7 @@ def fa2_fwd(
     b, hq, sq, d = q.shape
     _, hkv, skv, dv = v.shape
     check_operands("fa2_fwd", (q, k, v), d)
+    check_copy_alignment("fa2_fwd", (q, k, v))
     check_no_grad(q, k, v)
     if k.shape != (b, hkv, skv, d) or dv != d or hq % hkv:
         raise ValueError(f"fa2_fwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "

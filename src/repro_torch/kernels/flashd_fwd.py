@@ -6,19 +6,28 @@ The CUDA source is `csrc/flashd_fwd.cu`.
 
 Design. The TPU ran a (batch, head, q block, kv block) grid whose kv axis
 was sequential, carrying (acc, Λ) in VMEM. Hopper runs blocks in parallel
-and in no order, so one CTA owns a (q block, q head, batch row) and loops
-over the KV tiles itself, with the exact FLASH-D carry and guards of the
-Pallas body (tile-local max clamped at NEG_INF/2, `tile_dead` / `first`
-selects, c ≤ 1, no epilogue division). Q, K and V are read through their
-strides, so the model layout [B, S, H, d] goes in as a transposed view —
-the reference's `ops.py` transposed copies of q/k/v disappear. Tiles that
-`tile_live` rules out are never loaded, and q rows ≥ Sq are never written.
+and in no order, so one CTA owns a (q block of 64 rows, q head, batch row)
+and loops over the KV tiles itself, with the exact FLASH-D carry and guards
+of the Pallas body (tile-local max clamped at NEG_INF/2, `tile_dead` /
+`first` selects, c ≤ 1, no epilogue division). Q, K and V are read through
+their strides, so the model layout [B, S, H, d] goes in as a transposed
+view — the reference's `ops.py` transposed copies of q/k/v disappear.
+Tiles that `tile_live` rules out are never loaded, and q rows ≥ Sq are
+never written.
+
+Datapath. Both products run on the tensor cores (mma.sync): bf16 operands
+as m16n8k16 with P rounded to bf16; f32 operands as 3xTF32 (each operand
+split into two TF32 halves, three products, f32 accumulation), which holds
+the 5e-5 bound where one-pass TF32 would not. K/V tiles stream through a
+2-stage cp.async ring. The tile machine (`csrc/attn_tc.cuh`) is shared
+with K6; only the carry is this kernel's. cp.async copies 16 bytes, so
+every operand's base and batch / head / row strides must be multiples of
+16 bytes (`check_copy_alignment`); the model-layout views are.
 
 Bound. At prefill lengths the work is O(Sq·Skv·d) operations on
-O((Sq + Skv)·d) bytes: operations bound it. This first kernel computes
-both products with f32 FMA on the CUDA cores (K/V tiles of ≤ 64 rows in
-shared memory), so it sits well below the tensor-core peak; `mma`/`wgmma`
-and TMA are later work. Its times are in PERF.md.
+O((Sq + Skv)·d) bytes: operations bound it — 4·d flops per visible pair
+over 989 TFLOP/s in bf16, three TF32 products over 495 TFLOP/s in f32.
+Its times are in PERF.md.
 
 Launches are counted in the module-level integer `launches` (one per
 kernel launch), which `chip_smoke.py` reads to prove the main path ran it.
@@ -40,11 +49,12 @@ __all__ = [
     "KERNEL_BLOCK_Q",
     "KERNEL_BLOCK_K",
     "HEAD_DIMS",
+    "check_copy_alignment",
     "launches",
 ]
 
-KERNEL_BLOCK_Q = 32  # q rows per CTA (BQ in the source)
-KERNEL_BLOCK_K = 64  # default and largest kv tile (BK_MAX)
+KERNEL_BLOCK_Q = 64  # q rows per CTA (tc::BQ in csrc/attn_tc.cuh)
+KERNEL_BLOCK_K = 64  # default and largest kv tile (tc::BKP)
 HEAD_DIMS = (32, 48, 64, 128)
 _MASK_KINDS = {"full": 0, "causal": 1, "local": 2, "chunked": 3}
 
@@ -116,6 +126,21 @@ def check_operands(name: str, tensors, head_dim: int) -> None:
         raise ValueError(f"{name}: head dim {head_dim} not built (have {HEAD_DIMS})")
 
 
+def check_copy_alignment(name: str, tensors) -> None:
+    """The tensor-core forward kernels (K1, K6) stage rows with 16-byte
+    asynchronous copies: every base address and every batch / head / row
+    stride (of a dim longer than 1) must be a multiple of 16 bytes. A view
+    that breaks this raises here rather than launching."""
+    for t in tensors:
+        size = t.element_size()
+        bad = [i for i in range(t.dim() - 1) if t.shape[i] > 1 and (t.stride(i) * size) % 16]
+        if t.data_ptr() % 16 or (t.shape[-1] * size) % 16 or bad:
+            raise ValueError(
+                f"{name}: the kernel copies 16-byte rows; base, head dim and strides "
+                f"{tuple(t.stride())} of a {t.dtype} operand must be multiples of 16 bytes"
+            )
+
+
 def _launcher():
     global _fn
     if _fn is None:
@@ -152,6 +177,7 @@ def flashd_fwd(
     b, hq, sq, d = q.shape
     _, hkv, skv, dv = v.shape
     check_operands("flashd_fwd", (q, k, v), d)
+    check_copy_alignment("flashd_fwd", (q, k, v))
     check_no_grad(q, k, v)
     if k.shape != (b, hkv, skv, d) or dv != d or hq % hkv:
         raise ValueError(f"flashd_fwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "

@@ -183,6 +183,108 @@ def test_fa2_kernel_matches_plain_and_k1(cuda, case):
     _close(ob, ob_p, BF16_TOL)
 
 
+TC_FWD = [(k1.flashd_fwd, k1.flashd_fwd_plain), (k6.fa2_fwd, k6.fa2_fwd_plain)]
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("sq, skv", [(1, 1), (63, 63), (65, 65), (200, 1000)])
+def test_tc_fwd_kernels_ragged_tiles_and_groups(cuda, sq, skv, group):
+    """K1 and K6 (tensor cores) at lengths that are not multiples of the
+    64-row q block and the 64-key tile, every GQA group the models use;
+    causal as a chunk at the end of the keys, and full."""
+    gen = torch.Generator(device=cuda).manual_seed(sq * 8 + group)
+    hkv, d = 2, 128
+    args = tuple(torch.randn(2, s_, h, d, generator=gen, device=cuda).transpose(1, 2)
+                 for s_, h in ((sq, hkv * group), (skv, hkv), (skv, hkv)))
+    for m in (tb.MaskSpec("causal", q_offset=skv - sq), tb.MaskSpec("full")):
+        for fwd, plain in TC_FWD:
+            o, lam = fwd(*args, mask=m)
+            o_p, lam_p = plain(*args, mask=m)
+            _close(o, o_p)
+            _close(lam, lam_p)
+            ob, _ = fwd(*(x.bfloat16() for x in args), mask=m)
+            ob_p, _ = plain(*(x.bfloat16() for x in args), mask=m)
+            _close(ob, ob_p, BF16_TOL)
+
+
+def _attention_f64(q, k, v, mask):
+    """Softmax attention in float64 (GQA), the truth at large scores."""
+    g = q.shape[1] // k.shape[1]
+    kd, vd = (x.double().repeat_interleave(g, 1) for x in (k, v))
+    s = q.double() @ kd.transpose(-1, -2) / q.shape[-1] ** 0.5
+    keep = mask.keep(torch.arange(q.shape[2], device=q.device),
+                     torch.arange(k.shape[2], device=q.device))
+    s = s.masked_fill(~keep, float("-inf"))
+    return torch.softmax(s, -1) @ vd, torch.logsumexp(s, -1)
+
+
+def test_tc_fwd_kernels_hold_f32_at_large_scores(cuda):
+    """q and k scaled ×4 (scores up to ±60), f32, S 1024: one-pass TF32
+    would be ~1e-2 off (tests/test_torch_tc_numerics.py); the 3xTF32 split
+    holds 5e-5. Held against float64: at these scores the plain version's
+    own f32 arithmetic is ~4e-5 from the truth, so both kernels are also
+    held to be no farther from it than the plain version is."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 1024, 4, 128, generator=gen, device=cuda).transpose(1, 2) * 4
+    k = torch.randn(1, 1024, 2, 128, generator=gen, device=cuda).transpose(1, 2) * 4
+    v = torch.randn(1, 1024, 2, 128, generator=gen, device=cuda).transpose(1, 2)
+    m = tb.MaskSpec("causal")
+    o_t, lam_t = _attention_f64(q, k, v, m)
+    o_p, lam_p = k1.flashd_fwd_plain(q, k, v, mask=m)
+    plain_err = max(float((o_p - o_t).abs().max()), float((lam_p - lam_t).abs().max()))
+    for fwd, _ in TC_FWD:
+        o, lam = fwd(q, k, v, mask=m)
+        err = max(float((o - o_t).abs().max()), float((lam - lam_t).abs().max()))
+        assert err <= min(TOL, plain_err), (fwd.__name__, err, plain_err)
+
+
+def test_tc_fwd_kernels_on_a_q_offset_view(cuda):
+    """A q block of Sq < Skv as a strided view (`qt[:, :, 1024:]`, as chip
+    smoke phase 3), causal with q_offset, f32 and bf16."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 2048, 4, 128, generator=gen, device=cuda)
+    k = torch.randn(1, 2048, 2, 128, generator=gen, device=cuda)
+    v = torch.randn(1, 2048, 2, 128, generator=gen, device=cuda)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    m = tb.MaskSpec("causal", q_offset=1024)
+    for fwd, plain in TC_FWD:
+        for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+            args = (qt.to(dtype)[:, :, 1024:], kt.to(dtype), vt.to(dtype))
+            o, lam = fwd(*args, mask=m)
+            o_p, lam_p = plain(*args, mask=m)
+            _close(o, o_p, tol)
+            _close(lam, lam_p)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tc_fwd_kernels_are_deterministic(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    args = tuple(torch.randn(2, 300, h, 128, generator=gen, device=cuda).to(dtype).transpose(1, 2)
+                 for h in (8, 2, 2))
+    for fwd, _ in TC_FWD:
+        o, lam = fwd(*args)
+        o2, lam2 = fwd(*args)
+        assert torch.equal(o, o2) and torch.equal(lam, lam2), fwd.__name__
+
+
+def test_tc_fwd_wrappers_refuse_unaligned_views(cuda):
+    """The 16-byte asynchronous copies need 16-byte bases and strides: a
+    view whose row stride is 33 floats (132 bytes) raises, launching
+    nothing."""
+    x = torch.randn(1, 2, 40, 33, device=cuda)[..., :32]
+    ok = torch.randn(1, 2, 40, 32, device=cuda)
+    for fwd, _ in TC_FWD:
+        mod = k1 if fwd is k1.flashd_fwd else k6
+        before = mod.launches
+        for args in ((x, ok, ok), (ok, x, ok), (ok, ok, x)):
+            with pytest.raises(ValueError, match="16 bytes"):
+                fwd(*args)
+        off = torch.randn(1, 2, 40 * 32 + 1, device=cuda).bfloat16()[..., 1:]
+        with pytest.raises(ValueError, match="16 bytes"):  # a base off by one bf16
+            fwd(off.reshape(1, 2, 40, 32), ok.bfloat16(), ok.bfloat16())
+        assert mod.launches == before
+
+
 @pytest.mark.parametrize("impl", ["flashd_gpu", "fa2_gpu", "flashd", "fa2"])
 def test_flash_attention_grads_on_the_kernel_route(cuda, impl):
     """The autograd Function on CUDA tensors: K1 or K6 forward, K5 backward,

@@ -11,7 +11,7 @@ non-zero:
   2. building the CUDA kernels from src/repro_torch/csrc with nvcc, one
      process per source, all at once; per library the tensor-core (HGMMA,
      HMMA) and FFMA instruction counts of its SASS (cuobjdump), asserting
-     that K1 and K6 run on the tensor cores;
+     that K1, K5 and K6 run on the tensor cores;
   3. K1 `flashd_fwd` against `flashd_fwd_plain` at qwen3-0.6b widths
      (Hq 16, Hkv 8, d 128, Sq = Skv = 2048): four mask kinds, q_offset,
      skip on/off, fully masked rows; f32 and bf16; timed in both dtypes
@@ -21,7 +21,9 @@ non-zero:
   4. K2 `flashd_decode` against `flashd_decode_plain` (B 8, S_max 4096,
      ragged cache_len with 0 and 1; window, chunk, start, return_lam,
      fused and unfused, bf16), timed at the engine's decode shape (f32 and
-     bf16; phases 7, 8 and 10 time bf16 beside f32 too);
+     bf16; phases 7, 8 and 10 time bf16 beside f32 too), by CUDA events
+     around the call and by the device time of what it launches (phases 7
+     and 8 too), beside the byte bound of each dtype;
   5. full-width qwen3-0.6b in f32 on seeded random weights: apply_lm
      (last_only) and the engine (`generate`, `serve`), kernels against
      the plain path — greedy tokens identical, logits within bound, both
@@ -43,7 +45,8 @@ non-zero:
  10. K5 `flashd_bwd` against `flashd_bwd_plain` at qwen3-0.6b training
      widths (B 2, Hq 16, Hkv 8, d 128, S 1024): four mask kinds, a ragged
      S of 1000, dead rows; f32 and bf16; deterministic; timed beside the
-     plain version and the backward of one `scaled_dot_product_attention`;
+     plain version and the backward of one `scaled_dot_product_attention`,
+     with three bounds (f32 on the CUDA cores, 3xTF32, bf16) and TFLOP/s;
  11. K6 `fa2_fwd` against `fa2_fwd_plain` and against K1 (O and Λ), and
      K1 and K6 timed in turns at phase 3's shape in f32 and in bf16 (the
      paper's FLASH-D vs FA2 comparison on this card), beside SDPA in both
@@ -85,7 +88,7 @@ BF16_LOSS_REL = 1e-2  # bf16 step-0 loss vs f32: 8-bit mantissa, averaged over 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # dense peaks: f32 on the CUDA cores; TF32 and bf16 on the tensor cores
 PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
-TC_KERNELS = ("flashd_fwd", "fa2_fwd")  # the sources whose products run on the tensor cores
+TC_KERNELS = ("flashd_fwd", "fa2_fwd", "flashd_bwd")  # the sources whose products run on the tensor cores
 
 
 def _line(phase: int, text: str) -> None:
@@ -111,6 +114,27 @@ def _time_ms(fn, reps: int = 10, flush=None) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _device_ms(fn, flush, reps: int = 20) -> float:
+    """Device time of `fn` per call: the kernels and memsets it launches,
+    summed by torch.profiler, with the L2 cache overwritten before each
+    call (the flush's own fill kernel left out). Unlike `_time_ms` it
+    leaves out the host's launch overhead, which exceeds the flush for a
+    small kernel behind a Python wrapper."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "FillFunctor<int>" not in e.key) / reps / 1e3
 
 
 def _err(a, b) -> float:
@@ -168,6 +192,12 @@ def _attn_bounds(ops: float, bytes_f32: float, bytes_bf16: float) -> dict:
     return {"f32_cuda": bound(ops / PEAK_OPS["float32"], bytes_f32 / HBM_BYTES_PER_S),
             "3xtf32": bound(3 * ops / PEAK_OPS["tf32"], bytes_f32 / HBM_BYTES_PER_S),
             "bf16": bound(ops / PEAK_OPS["bfloat16"], bytes_bf16 / HBM_BYTES_PER_S)}
+
+
+def _bytes_bound(n_bytes: float, ops: float) -> float:
+    """ms: the larger of `n_bytes` over HBM bandwidth and `ops` f32 FMA
+    flops over the CUDA cores' rate (the decode kernels: bytes bound it)."""
+    return 1e3 * max(n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS["float32"])
 
 
 def _fmt_bounds(bounds: dict, ops: float, ms: dict) -> str:
@@ -412,7 +442,8 @@ def main() -> int:
     kct, vct = kc.transpose(1, 2), vc.transpose(1, 2)
     cl = torch.tensor([0, 1, 17, 1000, 2049, 3333, 4095, 4096], dtype=torch.int32, device=dev)
     start = torch.tensor([0, 0, 5, 900, 0, 3000, 4000, 100], dtype=torch.int32, device=dev)
-    n_default = k2.gpu_decode_splits(s_max)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_default = k2.gpu_decode_splits(bd, hkv, s_max, n_sm)
     dcases = [
         ("default", dict(n_splits=n_default)),
         ("unfused", dict(n_splits=n_default, fused=False)),
@@ -434,6 +465,10 @@ def main() -> int:
         dreport.append(f"{name} {e:.2e}")
     fused_vs_unfused = _err(k2.flashd_decode(qd, kct, vct, cl),
                             k2.flashd_decode(qd, kct, vct, cl, fused=False))
+    repeat_equal = all(torch.equal(x, y) for x, y in zip(
+        k2.flashd_decode(qd, kct, vct, cl, return_lam=True),
+        k2.flashd_decode(qd, kct, vct, cl, return_lam=True)))
+    assert repeat_equal, "K2 is not bitwise repeatable"
     ob = k2.flashd_decode(qd.bfloat16(), kct.bfloat16(), vct.bfloat16(), cl)
     ob_p = k2.flashd_decode_plain(qd.bfloat16(), kct.bfloat16(), vct.bfloat16(), cl, n_splits=n_default)
     e2_bf16 = _err(ob, ob_p)
@@ -446,27 +481,37 @@ def main() -> int:
     ve = torch.randn(be, se, hkv, d, generator=gen, device=dev)
     cle = torch.full((be,), se, dtype=torch.int32, device=dev)
     ket, vet = ke.transpose(1, 2), ve.transpose(1, 2)
-    k2_ms = _time_ms(lambda: k2.flashd_decode(qe, ket, vet, cle), reps=20, flush=flush)
-    k2_plain_ms = _time_ms(lambda: k2.flashd_decode_plain(qe, ket, vet, cle, n_splits=k2.gpu_decode_splits(se)),
-                           reps=20, flush=flush)
+    n_engine = k2.gpu_decode_splits(be, hkv, se, n_sm)
     qe4 = qe[:, :, None]
-    k2_lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qe4, ket, vet, enable_gqa=True), reps=20, flush=flush)
     qeb, keb, veb = qe.bfloat16(), ket.bfloat16(), vet.bfloat16()
-    k2_bf16_ms = _time_ms(lambda: k2.flashd_decode(qeb, keb, veb, cle), reps=20, flush=flush)
-    k2_lib_bf16_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        qeb[:, :, None], keb, veb, enable_gqa=True), reps=20, flush=flush)
+    k2_calls = {  # (kernel, library) per dtype
+        "f32": (lambda: k2.flashd_decode(qe, ket, vet, cle),
+                lambda: F.scaled_dot_product_attention(qe4, ket, vet, enable_gqa=True)),
+        "bf16": (lambda: k2.flashd_decode(qeb, keb, veb, cle),
+                 lambda: F.scaled_dot_product_attention(qeb[:, :, None], keb, veb,
+                                                        enable_gqa=True)),
+    }
+    k2_t = {(dt, who): (_time_ms(fn, reps=20, flush=flush), _device_ms(fn, flush))
+            for dt, fns in k2_calls.items() for who, fn in zip(("kernel", "sdpa"), fns)}
+    k2_ms, k2_dev_ms = k2_t["f32", "kernel"]
+    k2_bf16_ms, k2_bf16_dev_ms = k2_t["bf16", "kernel"]
+    k2_lib_ms, k2_lib_bf16_ms = k2_t["f32", "sdpa"][0], k2_t["bf16", "sdpa"][0]
+    k2_plain_ms = _time_ms(lambda: k2.flashd_decode_plain(qe, ket, vet, cle, n_splits=n_engine),
+                           reps=20, flush=flush)
     live = int(cle.sum())
-    k2_bytes = 2 * live * hkv * d * 4 + 2 * be * hq * d * 4
     k2_ops = 4 * d * live * hq
-    k2_bound = 1e3 * max(k2_bytes / HBM_BYTES_PER_S, k2_ops / PEAK_OPS["float32"])
-    _line(4, f"K2 flashd_decode f32 max|Δ| vs plain (B {bd}, S_max {s_max}, cache_len "
-             f"{cl.tolist()}): {', '.join(dreport)} (bound {F32_TOL}); fused vs unfused "
-             f"{fused_vs_unfused:.2e}; bf16 {e2_bf16:.2e} (bound {BF16_TOL}); at B {be}, "
-             f"S_max {se}, {live} live tokens f32: kernel {k2_ms * 1e3:.1f} us, plain "
-             f"{k2_plain_ms * 1e3:.1f} us, sdpa {k2_lib_ms * 1e3:.1f} us, bound "
-             f"{k2_bound * 1e3:.2f} us (bytes); bf16: kernel {k2_bf16_ms * 1e3:.1f} us, sdpa "
-             f"{k2_lib_bf16_ms * 1e3:.1f} us {ph}")
+    k2_bounds = {dt: _bytes_bound(2 * live * hkv * d * size + 2 * be * hq * d * size, k2_ops)
+                 for dt, size in (("f32", 4), ("bf16", 2))}
+    k2_bound = k2_bounds["f32"]
+    times = "; ".join(
+        f"{dt} {who} {ev * 1e3:.2f} us (device {dv * 1e3:.2f} us)" for (dt, who), (ev, dv) in k2_t.items())
+    _line(4, f"K2 flashd_decode f32 max|Δ| vs plain (B {bd}, S_max {s_max}, {n_default} splits, "
+             f"cache_len {cl.tolist()}): {', '.join(dreport)} (bound {F32_TOL}); fused vs unfused "
+             f"{fused_vs_unfused:.2e}; bitwise equal on a second call: {repeat_equal}; bf16 "
+             f"{e2_bf16:.2e} (bound {BF16_TOL}); at B {be}, S_max {se}, {n_engine} splits "
+             f"({n_engine * be * hkv} CTAs on {n_sm} SMs), {live} live tokens, events (device "
+             f"time): {times}; plain f32 {k2_plain_ms * 1e3:.1f} us; byte bounds f32 "
+             f"{k2_bounds['f32'] * 1e3:.2f} us, bf16 {k2_bounds['bf16'] * 1e3:.2f} us {ph}")
 
     # ---- 5. full-width qwen3-0.6b, f32: kernels vs plain, tokens identical ----
     ph = _Phase()
@@ -605,17 +650,21 @@ def main() -> int:
     k3_lib_bf16_ms = _time_ms(lambda: (gather_pages(kpb, tbl), gather_pages(vpb, tbl)), reps=20,
                               flush=flush) + _time_ms(lambda: F.scaled_dot_product_attention(
                                   qeb[:, :, None], kgb, vgb, enable_gqa=True), reps=20, flush=flush)
+    k3_dev_ms = _device_ms(lambda: k2.flashd_decode_paged(qe, kp, vp, tbl, cle3), flush)
+    k3_bf16_dev_ms = _device_ms(lambda: k2.flashd_decode_paged(qeb, kpb, vpb, tbl, cle3), flush)
     live3 = be * max_len
-    k3_bytes = 2 * live3 * hkv * d * 4 + 2 * be * hq * d * 4
     k3_ops = 4 * d * live3 * hq
-    k3_bound = 1e3 * max(k3_bytes / HBM_BYTES_PER_S, k3_ops / PEAK_OPS["float32"])
+    k3_bound, k3_bf16_bound = (_bytes_bound(2 * live3 * hkv * d * size + 2 * be * hq * d * size,
+                                            k3_ops) for size in (4, 2))
     _line(7, f"K3 flashd_decode_paged f32 max|Δ| vs plain (B {len(lengths)}, cache_len {lengths}, "
              f"NaN page 0): {', '.join(k3_report)} (bound {F32_TOL}; bf16 {BF16_TOL}); at B {be}, "
              f"max_len {max_len}, page {page}, {live3} live tokens f32: kernel "
              f"{k3_ms * 1e3:.1f} us, plain {k3_plain_ms * 1e3:.1f} us, library {k3_lib_ms * 1e3:.1f} us (gather_pages "
              f"{k3_gather_ms * 1e3:.1f} us + sdpa {k3_sdpa_ms * 1e3:.1f} us), bound "
              f"{k3_bound * 1e3:.2f} us (bytes); bf16: kernel {k3_bf16_ms * 1e3:.1f} us, library "
-             f"{k3_lib_bf16_ms * 1e3:.1f} us {ph}")
+             f"{k3_lib_bf16_ms * 1e3:.1f} us, bound {k3_bf16_bound * 1e3:.2f} us (bytes); device "
+             f"time of the kernel {k3_dev_ms * 1e3:.2f} us f32, {k3_bf16_dev_ms * 1e3:.2f} us bf16 "
+             f"{ph}")
 
     # ---- 8. K4 against its plain version, on packs from the engine's packer ----
     ph = _Phase()
@@ -702,16 +751,22 @@ def main() -> int:
     live_tok = sum(int(kvl_np[sl]) for sl in {seg.slot for seg in mixed_plan.segments})
     n_rows = int((qp >= 0).sum())
     k4_bytes = 2 * live_tok * hkv * d * 4 + 2 * n_rows * hq * d * 4
-    k4_bound = 1e3 * max(k4_ops / PEAK_OPS["float32"], k4_bytes / HBM_BYTES_PER_S)
+    k4_bound = _bytes_bound(k4_bytes, k4_ops)
+    k4_bf16_bound = _bytes_bound(k4_bytes / 2, k4_ops)
     k4_bound_by = "operations" if k4_ops / PEAK_OPS["float32"] > k4_bytes / HBM_BYTES_PER_S \
         else "bytes"
+    k4_dev_ms = _device_ms(lambda: k4.flashd_varlen(qv, kp, vp, tbl, sid, qp, kvl,
+                                                    block_q=mixed_bq), flush)
+    k4_bf16_dev_ms = _device_ms(lambda: k4.flashd_varlen(qvb, kpb, vpb, tbl, sid, qp, kvl,
+                                                         block_q=mixed_bq), flush)
     _line(8, f"K4 flashd_varlen f32 max|Δ| vs plain (NaN page 0, page {page}, window 50 too): "
              f"{'; '.join(k4_report)} (bound {F32_TOL}; bf16 {BF16_TOL}); padding rows exactly 0; "
              f"mixed-step pack (T {len(sid_np)}, block_q {mixed_bq}, {n_rows} rows, {live_tok} "
              f"live tokens) f32: kernel {k4_ms * 1e3:.1f} us, plain {k4_plain_ms * 1e3:.1f} us, "
              f"sdpa with a boolean mask over the gathered rows {k4_lib_ms * 1e3:.1f} us, bound "
              f"{k4_bound * 1e3:.2f} us ({k4_bound_by}); bf16: kernel {k4_bf16_ms * 1e3:.1f} us, "
-             f"sdpa {k4_lib_bf16_ms * 1e3:.1f} us {ph}")
+             f"sdpa {k4_lib_bf16_ms * 1e3:.1f} us, bound {k4_bf16_bound * 1e3:.2f} us; device time "
+             f"of the kernel {k4_dev_ms * 1e3:.2f} us f32, {k4_bf16_dev_ms * 1e3:.2f} us bf16 {ph}")
 
     # ---- 9. the paged and mixed loops at full width: kernels vs plain ----
     ph = _Phase()
@@ -854,16 +909,21 @@ def main() -> int:
     del q_l, k_l, v_l, o_l, do_l, args_b
     k5_pairs = bt * st * (st + 1) // 2
     k5_ops = 10 * d * k5_pairs * hq  # s, dO·Vᵀ, dQ, dK, dV: 2·d flops each per visible pair
-    # q, O, dO, k, v and Λ read once; dQ, dK, dV written once
-    k5_bytes = 4 * (bt * st * d * (3 * hq + 2 * hkv) + bt * hq * st) + 4 * bt * st * d * (hq + 2 * hkv)
-    k5_bound = 1e3 * max(k5_ops / PEAK_OPS["float32"], k5_bytes / HBM_BYTES_PER_S)
-    k5_bound_by = "operations" if k5_ops / PEAK_OPS["float32"] > k5_bytes / HBM_BYTES_PER_S else "bytes"
+    # q, O, dO, k, v read once and dQ, dK, dV written once (operand dtype); Λ read (f32)
+    k5_elems = bt * st * d * (3 * hq + 2 * hkv) + bt * st * d * (hq + 2 * hkv)
+    k5_bounds = _attn_bounds(k5_ops, 4 * k5_elems + 4 * bt * hq * st,
+                             2 * k5_elems + 4 * bt * hq * st)
+    k5_bound, k5_bound_by = k5_bounds["3xtf32"]  # the f32 kernel's datapath
     _line(10, f"K5 flashd_bwd max|Δ| vs plain (B {bt}, Hq {hq}, Hkv {hkv}, d {d}): "
               f"{', '.join(k5_report)} (f32 bound rtol {GRAD_RTOL} atol {GRAD_ATOL} per entry; "
               f"bf16 {GRAD_BF16:.4f}·max|grad|); bitwise equal on a second run: {deterministic}; "
               f"causal S={st} f32: kernel {k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms, sdpa "
-              f"backward {k5_lib_ms:.3f} ms, bound {k5_bound:.3f} ms ({k5_bound_by}); bf16: kernel "
-              f"{k5_bf16_ms:.3f} ms, sdpa backward {k5_lib_bf16_ms:.3f} ms {ph}")
+              f"backward {k5_lib_ms:.3f} ms; bf16: kernel {k5_bf16_ms:.3f} ms, sdpa backward "
+              f"{k5_lib_bf16_ms:.3f} ms; "
+              + _fmt_bounds(k5_bounds, k5_ops, {"kernel f32": k5_ms, "kernel bf16": k5_bf16_ms,
+                                                "sdpa bwd f32": k5_lib_ms,
+                                                "sdpa bwd bf16": k5_lib_bf16_ms})
+              + f" {ph}")
 
     # ---- 11. K6 against its plain version and K1; K1 vs K6 at phase 3's shape ----
     ph = _Phase()
@@ -1033,13 +1093,19 @@ def main() -> int:
          "launches": launches["flashd_decode"], "max_abs_err": k2_err, "ms": k2_ms,
          "plain_ms": k2_plain_ms, "bound_ms": k2_bound, "bound_by": "bytes",
          "library_ms": k2_lib_ms, "bf16_ms": k2_bf16_ms, "bf16_library_ms": k2_lib_bf16_ms,
-         "shape": f"B{be} Hq{hq} Hkv{hkv} d{d} S_max{se} {live} live tokens f32"},
+         "bf16_bound_ms": k2_bounds["bf16"], "device_ms": k2_dev_ms,
+         "bf16_device_ms": k2_bf16_dev_ms, "library_device_ms": k2_t["f32", "sdpa"][1],
+         "bf16_library_device_ms": k2_t["bf16", "sdpa"][1],
+         "shape": f"B{be} Hq{hq} Hkv{hkv} d{d} S_max{se} {live} live tokens, {n_engine} "
+                  f"splits, f32 and bf16 (ms: CUDA events around the call; device_ms: what it "
+                  f"launches, torch.profiler)"},
         {"name": "flashd_decode_paged", "route": "cuda",
          "source": "src/repro_torch/csrc/flashd_decode.cu",
          "replaces": "src/repro/kernels/flashd_decode.py:380",
          "launches": pool_launches["flashd_decode_paged"], "max_abs_err": k3_err, "ms": k3_ms,
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": "bytes",
          "library_ms": k3_lib_ms, "bf16_ms": k3_bf16_ms, "bf16_library_ms": k3_lib_bf16_ms,
+         "bf16_bound_ms": k3_bf16_bound, "device_ms": k3_dev_ms, "bf16_device_ms": k3_bf16_dev_ms,
          "shape": f"B{be} Hq{hq} Hkv{hkv} d{d} page 64, 8 pages/seq, {live3} live tokens f32"},
         {"name": "flashd_varlen", "route": "cuda",
          "source": "src/repro_torch/csrc/flashd_varlen.cu",
@@ -1047,6 +1113,7 @@ def main() -> int:
          "launches": pool_launches["flashd_varlen"], "max_abs_err": k4_err, "ms": k4_ms,
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_bound_by,
          "library_ms": k4_lib_ms, "bf16_ms": k4_bf16_ms, "bf16_library_ms": k4_lib_bf16_ms,
+         "bf16_bound_ms": k4_bf16_bound, "device_ms": k4_dev_ms, "bf16_device_ms": k4_bf16_dev_ms,
          "shape": f"T{len(sid_np)} block_q {mixed_bq} ({n_rows} rows: 3 decode + a 16-row chunk) "
                   f"Hq{hq} Hkv{hkv} d{d} page 64, {live_tok} live tokens f32"},
         {"name": "flashd_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_bwd.cu",
@@ -1054,7 +1121,10 @@ def main() -> int:
          "launches": train_launches["flashd_bwd"], "max_abs_err": k5_err, "ms": k5_ms,
          "plain_ms": k5_plain_ms, "bound_ms": k5_bound, "bound_by": k5_bound_by,
          "library_ms": k5_lib_ms, "bf16_ms": k5_bf16_ms, "bf16_library_ms": k5_lib_bf16_ms,
-         "shape": f"B{bt} Hq{hq} Hkv{hkv} d{d} Sq=Skv={st} causal f32 (dQ, dK, dV)"},
+         "bf16_bound_ms": k5_bounds["bf16"][0],
+         "f32_cuda_core_bound_ms": k5_bounds["f32_cuda"][0],
+         "shape": f"B{bt} Hq{hq} Hkv{hkv} d{d} Sq=Skv={st} causal (dQ, dK, dV) f32 (3xTF32 on "
+                  f"the tensor cores; bound_ms is its 3xTF32 bound) and bf16"},
         {"name": "fa2_fwd", "route": "cuda", "source": "src/repro_torch/csrc/fa2_fwd.cu",
          "replaces": "src/repro/kernels/fa2_fwd.py:101", "launches": train_launches["fa2_fwd"],
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k1_bound,

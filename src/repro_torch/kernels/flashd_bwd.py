@@ -9,22 +9,29 @@ an exponent ≤ 0, so no max pass — and returns dQ = dS·K, dK = dSᵀ·Q,
 dV = Pᵀ·dO with dS = P∘(dO·Vᵀ − D)·scale and D = rowsum(dO∘O). D is one
 PyTorch reduction here, as the reference computes it outside its kernel.
 
-Design. Two kernels and no atomics, the TPU's split: a dQ kernel with a CTA
-per (q block, q head, batch row) looping over the KV tiles, and a dK/dV
-kernel with a CTA per (kv block, kv head, batch row) looping over its G q
-heads × q blocks, so GQA's group sum stays in registers. Each gradient is
-summed in a fixed order: the same inputs give the same bits on every run,
-which the bitwise-resume contract of the resilient trainer relies on. The
-masks, tiles (32 × 64) and `tile_live` pruning are K1's; dead rows
+Design. K1's tensor-core tile machine turned around, with two kernels and
+no atomics (the TPU's split): a dQ kernel with a CTA per (q block of 64
+rows, q head, batch row) looping over the KV tiles, and a dK/dV kernel with
+a CTA per (KV block of 64 keys, kv head, batch row) looping over its G q
+heads × q tiles, so GQA's group sum stays in registers. Keys are the rows
+of the dK/dV products, so Pᵀ and dSᵀ come out of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+already in the layout the next product takes. All five products run on
+the tensor cores (mma.sync): bf16 operands with P and dS rounded to bf16,
+f32 operands as 3xTF32; every gradient accumulator takes fresh partials
+added in f32, since the tensor core truncates what it accumulates. Each
+gradient is summed in a fixed order: the same inputs give the same bits on
+every run, which the bitwise-resume contract of the resilient trainer
+relies on. The masks and `tile_live` pruning are K1's; dead rows
 (Λ ≤ NEG_INF/2, padded q rows) get P = 0. Q, K, V and dO are read through
-their strides and dQ, dK, dV written in the model layout, so the
-reference's transposed copies (`ops.py:181-184`) disappear. The forward's
-`skip` does not reach the backward: P is recomputed exactly.
+their strides — 16-byte copies, so bases and strides must be multiples of
+16 bytes (`check_copy_alignment`) — and dQ, dK, dV written in the model
+layout, so the reference's transposed copies (`ops.py:181-184`)
+disappear. The forward's `skip` does not reach the backward: P is
+recomputed exactly.
 
 Bound. Five products of d per visible (q, k) pair — 10·d flops — on
-O((Sq + Skv)·d) bytes: operations bound it, at 67 TFLOP/s in f32 on the
-CUDA cores, where this first kernel runs them as FMA. Its times are in
-PERF.md.
+O((Sq + Skv)·d) bytes: operations bound it, at 989 TFLOP/s in bf16 and,
+as three TF32 products, 495 TFLOP/s in f32. Its times are in PERF.md.
 
 `launches` counts calls that launch the pair (one per backward).
 """
@@ -37,7 +44,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.blockwise import MaskSpec, blockwise_backward
-from repro_torch.kernels.flashd_fwd import _MASK_KINDS, check_operands
+from repro_torch.kernels.flashd_fwd import _MASK_KINDS, check_copy_alignment, check_operands
 
 __all__ = ["flashd_bwd", "flashd_bwd_plain", "launches"]
 
@@ -88,7 +95,7 @@ def _launcher():
 
 
 def flashd_bwd(
-    q: torch.Tensor,  # [B, Hq, Sq, d]   — any strides with a contiguous head dim
+    q: torch.Tensor,  # [B, Hq, Sq, d]   — 16-byte strides, a contiguous head dim
     k: torch.Tensor,  # [B, Hkv, Skv, d]
     v: torch.Tensor,  # [B, Hkv, Skv, d]
     o: torch.Tensor,  # [B, Hq, Sq, d]   saved forward output
@@ -105,6 +112,7 @@ def flashd_bwd(
     b, hq, sq, d = q.shape
     _, hkv, skv, dv_ = v.shape
     check_operands("flashd_bwd", (q, k, v, o, do), d)
+    check_copy_alignment("flashd_bwd", (q, k, v, do))
     if (k.shape != (b, hkv, skv, d) or dv_ != d or hq % hkv or o.shape != q.shape
             or do.shape != q.shape or lam.shape != (b, hq, sq)):
         raise ValueError(f"flashd_bwd: shapes q {tuple(q.shape)} k {tuple(k.shape)} "

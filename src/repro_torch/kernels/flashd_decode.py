@@ -8,35 +8,39 @@ K2 replaces the Pallas TPU kernel
 (`flashd_decode_paged`) replaces `flashd_decode_paged_pallas`
 (`_decode_paged_kernel`). Both live in `csrc/flashd_decode.cu`.
 
-Design. On the TPU the splits were the innermost sequential grid axis with
-the merge carry in VMEM. Here each call is two launches: parallel split
-CTAs over (split, kv head, batch row) that read only the live part of
-their split from the [B, S_max, Hkv, d] cache (by stride — the reference's
+Bound. One query row per head: decode is a pass over the live KV bytes,
+so memory bandwidth bounds it (live K/V bytes over 3.35 TB/s). G = Hq/Hkv
+can be 1, below any tensor-core tile, so the dot products are f32 FMA.
+
+K2's design keeps HBM busy. On the TPU the splits were the innermost
+sequential grid axis with the merge carry in VMEM. Here one launch runs a
+CTA per (split, kv head, batch row): `gpu_decode_splits` sizes the splits
+from (B, Hkv, S_max, the SM count) so that 2–4 CTAs sit on every SM; each
+CTA copies its split's live K and V rows (by stride — the reference's
 per-layer, per-step transpose copy of the whole cache at `ops.py:210`
-disappears) and write (o_p, λ_p) partials; then a merge kernel that blends
-them with the sigmoid in split order, the same order as the fused Pallas
-carry. `fused=False` instead merges the partials with the port's
-`merge_partials` tree, so the two orders can be held against each other.
+disappears) into shared memory with 16-byte asynchronous copies, all in
+flight at once, then reads 16 bytes a lane for the scores (reduced by
+shuffles over the lanes of a row) and for P·V (registers per warp, then a
+fixed-order sum over warps). The last CTA of each (batch row, kv head) to
+finish — an arrival counter picks it — blends the partials with the
+sigmoid in split order, the same order as the fused Pallas carry, so
+repeated calls are bitwise equal. `fused=False` instead merges the
+partials with the port's `merge_partials` tree, so the two orders can be
+held against each other. Every operand's base and batch / head / row
+strides must be multiples of 16 bytes (`check_copy_alignment`).
 
-Bound. One query row per head: decode is a pass over the live KV bytes, so
-memory bandwidth bounds it. G = Hq/Hkv can be 1, below any tensor-core
-tile, so the dot products are f32 FMA; each K row is read once for all G
-heads of its group, and splits of `GPU_SPLIT` positions spread one long
-sequence over many SMs.
-
-K3 is the same kernel pair with one page per split: the split CTA reads
-its sequence's block table entry tbl[b, ip] itself (the TPU resolved it
-in the DMA descriptors) and reads that physical page of the pool
+K3 is a two-launch body with one page per split: the split CTA reads its
+sequence's block table entry tbl[b, ip] itself (the TPU resolved it in the
+DMA descriptors) and reads that physical page of the pool
 [P, page, Hkv, d] by strides. A split past the sequence's live range
-neither reads its table slot nor touches the pool, so dead slots (page
-0 in the engine) are never read. The merge blends pages in order, as the
-TPU's fused carry did. An int8 pool with per-(page, head) f32 scales is
-dequantized in the tile, before the scores. Same bound as K2: the live
-KV bytes over memory bandwidth.
+neither reads its table slot nor touches the pool, so dead slots (page 0
+in the engine) are never read. A merge launch blends pages in order, as
+the TPU's fused carry did. An int8 pool with per-(page, head) f32 scales
+is dequantized in the tile, before the scores. Same bound as K2.
 
-`launches` counts K2 wrapper calls that launched the kernel pair (split
-kernel, then the merge kernel when fused); `paged_launches` counts K3
-wrapper calls (one C call: split and merge launches).
+`launches` counts K2 wrapper calls that launched the kernel;
+`paged_launches` counts K3 wrapper calls (one C call: split and merge
+launches).
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.blockwise import NEG_INF, merge_pair, merge_partials
-from repro_torch.kernels.flashd_fwd import check_operands, check_no_grad
+from repro_torch.kernels.flashd_fwd import check_copy_alignment, check_no_grad, check_operands
 
 __all__ = [
     "flashd_decode",
@@ -55,25 +59,37 @@ __all__ = [
     "gpu_decode_splits",
     "flashd_decode_paged",
     "flashd_decode_paged_plain",
-    "GPU_SPLIT",
     "MAX_GROUP",
     "launches",
     "paged_launches",
 ]
 
-GPU_SPLIT = 128  # cache positions per split CTA when n_splits is not given
 MAX_GROUP = 8  # G_MAX in the source
+CTAS_PER_SM = 4  # K2's target of split CTAs per SM
+SPLIT_STEP = 16  # K2's default splits: multiples of 16 positions …
+MAX_ROWS = 64  # … up to the rows a CTA stages at once (k2 chunk)
+H100_SMS = 132
 
 launches = 0
 paged_launches = 0
 _fns = None
 
 
-def gpu_decode_splits(s_max: int) -> int:
-    """The kernel's own split count: ⌈S_max / GPU_SPLIT⌉ (the TPU heuristic
-    in `tuning.choose_decode_split` sized splits for VMEM; here the point is
-    enough CTAs per sequence to fill the SMs)."""
-    return max(1, -(-s_max // GPU_SPLIT))
+def gpu_decode_splits(b: int, hkv: int, s_max: int, n_sm: int = H100_SMS) -> int:
+    """K2's own split count, a function of shapes only (no device sync).
+
+    The TPU heuristic (`tuning.choose_decode_split`) sized splits for VMEM;
+    here the point is enough CTAs to keep every SM's copies in flight: the
+    (B · Hkv) rows of the grid get ⌈CTAS_PER_SM · n_sm / (B · Hkv)⌉ splits
+    each, a split being a multiple of SPLIT_STEP positions between
+    SPLIT_STEP and MAX_ROWS. At the engine's decode shape (B 4, Hkv 8,
+    S_max 512) that is 16 splits of 32: 512 CTAs, 3.9 per SM."""
+    if s_max <= 1:
+        return 1
+    want = -(-CTAS_PER_SM * n_sm // max(b * hkv, 1))
+    split = -(-s_max // want)
+    split = min(max(-(-split // SPLIT_STEP) * SPLIT_STEP, SPLIT_STEP), MAX_ROWS)
+    return -(-s_max // split)
 
 
 def _lo_bound(cache_len, start, *, window: int, chunk: int):
@@ -160,16 +176,13 @@ def _launchers():
 
         lib = load("flashd_decode")
         P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        split_fn = lib.flashd_decode_split_launch
-        split_fn.argtypes = [P] * 7 + [L] * 8 + [I] * 10 + [F, P]
-        split_fn.restype = I
-        merge_fn = lib.flashd_decode_merge_launch
-        merge_fn.argtypes = [P] * 4 + [I] * 5 + [P]
-        merge_fn.restype = I
+        decode_fn = lib.flashd_decode_launch
+        decode_fn.argtypes = [P] * 10 + [L] * 8 + [I] * 11 + [F, P]
+        decode_fn.restype = I
         paged_fn = lib.flashd_decode_paged_launch
         paged_fn.argtypes = [P] * 10 + [L] * 9 + [I] * 10 + [F, P]
         paged_fn.restype = I
-        _fns = (split_fn, merge_fn, paged_fn)
+        _fns = (decode_fn, paged_fn)
     return _fns
 
 
@@ -183,7 +196,7 @@ def _device_lengths(name: str, x: torch.Tensor, b: int, device) -> torch.Tensor:
 
 
 def flashd_decode(
-    q: torch.Tensor,  # [B, Hq, d]  — any strides with a contiguous head dim
+    q: torch.Tensor,  # [B, Hq, d]  — 16-byte strides, a contiguous head dim
     k_cache: torch.Tensor,  # [B, Hkv, S_max, d]  — e.g. a transposed [B, S, Hkv, d] view
     v_cache: torch.Tensor,  # [B, Hkv, S_max, d]
     cache_len: torch.Tensor,  # [B] int, on the card
@@ -197,11 +210,12 @@ def flashd_decode(
     return_lam: bool = False,
 ):
     """Launch K2. Returns o [B, Hq, d] in q.dtype (and Λ [B, Hq] f32 with
-    return_lam). n_splits=None takes `gpu_decode_splits(S_max)`."""
+    return_lam). n_splits=None takes `gpu_decode_splits` for this card."""
     global launches
     b, hq, d = q.shape
     _, hkv, s_max, dv = v_cache.shape
     check_operands("flashd_decode", (q, k_cache, v_cache), d)
+    check_copy_alignment("flashd_decode", (q, k_cache, v_cache))
     check_no_grad(q, k_cache, v_cache)
     if k_cache.shape != (b, hkv, s_max, d) or dv != d or hq % hkv:
         raise ValueError(f"flashd_decode: shapes q {tuple(q.shape)} k {tuple(k_cache.shape)} "
@@ -213,43 +227,37 @@ def flashd_decode(
     start = None if start is None else _device_lengths("start", start, b, dev)
     if scale is None:
         scale = float(1.0 / (d ** 0.5))
-    n_splits = gpu_decode_splits(s_max) if n_splits is None else n_splits
+    if n_splits is None:
+        n_splits = gpu_decode_splits(b, hkv, s_max,
+                                     torch.cuda.get_device_properties(dev).multi_processor_count)
     n_splits = max(1, min(n_splits, s_max))
     split = -(-s_max // n_splits)
+    rows = min(-(-split // 4) * 4, MAX_ROWS)  # the CTA's chunk: the split, or 64-row chunks
 
     o_part = torch.empty((n_splits, b, hq, dv), dtype=torch.float32, device=dev)
     lam_part = torch.empty((n_splits, b, hq), dtype=torch.float32, device=dev)
-    split_fn, merge_fn, _ = _launchers()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    rc = split_fn(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-        None if start is None else start.data_ptr(),
-        o_part.data_ptr(), lam_part.data_ptr(),
+    o = lam = arrivals = None
+    if fused:
+        o = torch.empty((b, hq, dv), dtype=q.dtype, device=dev)
+        lam = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lam else None
+        arrivals = torch.empty((b * hkv,), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = _launchers()[0](
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(), ptr(start),
+        o_part.data_ptr(), lam_part.data_ptr(), ptr(o), ptr(lam), ptr(arrivals),
         q.stride(0), q.stride(1),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
-        b, hq, hkv, s_max, d, is_bf16, n_splits, split, window, chunk,
-        float(scale), stream,
+        b, hq, hkv, s_max, d, int(q.dtype == torch.bfloat16), n_splits, split, rows,
+        window, chunk, float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     launches += 1
     if rc != 0:
-        raise RuntimeError(f"flashd_decode: CUDA error {rc} at the split launch")
+        raise RuntimeError(f"flashd_decode: CUDA error {rc} at launch")
     if not fused:
         o, lam = merge_partials(o_part, lam_part)
         o = o.to(q.dtype)
-        return (o, lam) if return_lam else o
-    o = torch.empty((b, hq, dv), dtype=q.dtype, device=dev)
-    lam = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lam else None
-    rc = merge_fn(
-        o_part.data_ptr(), lam_part.data_ptr(), o.data_ptr(),
-        None if lam is None else lam.data_ptr(),
-        n_splits, b, hq, dv, is_bf16, stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"flashd_decode: CUDA error {rc} at the merge launch")
     return (o, lam) if return_lam else o
-
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +365,7 @@ def flashd_decode_paged(
     o_part = torch.empty((n_tbl, b, hq, d), dtype=torch.float32, device=dev)
     lam_part = torch.empty((n_tbl, b, hq), dtype=torch.float32, device=dev)
     o = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
-    rc = _launchers()[2](
+    rc = _launchers()[1](
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tbl.data_ptr(),
         cache_len.data_ptr(), None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(),

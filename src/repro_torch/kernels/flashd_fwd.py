@@ -127,8 +127,8 @@ def check_operands(name: str, tensors, head_dim: int) -> None:
 
 
 def check_copy_alignment(name: str, tensors) -> None:
-    """The tensor-core forward kernels (K1, K6) stage rows with 16-byte
-    asynchronous copies: every base address and every batch / head / row
+    """The kernels that stage rows with 16-byte asynchronous copies (K1,
+    K2, K5, K6) need every base address and every batch / head / row
     stride (of a dim longer than 1) must be a multiple of 16 bytes. A view
     that breaks this raises here rather than launching."""
     for t in tensors:

@@ -144,21 +144,67 @@ def test_bwd_kernel_matches_plain(cuda, case, dtype):
         assert (got[0][:, :, :-q_offset] == 0).all()
 
 
-@pytest.mark.parametrize("d", [32, 48, 128])
-def test_bwd_kernel_head_dims(cuda, d):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 48, 64, 128])
+def test_bwd_kernel_head_dims(cuda, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(d)
     m = tb.MaskSpec("causal")
-    args = _bwd_operands(gen, cuda, 1, 2, 2, 97, 97, d, m, torch.float32)
-    _grads_close(k5.flashd_bwd(*args, mask=m), k5.flashd_bwd_plain(*args, mask=m), torch.float32)
+    args = _bwd_operands(gen, cuda, 1, 2, 2, 97, 97, d, m, dtype)
+    _grads_close(k5.flashd_bwd(*args, mask=m), k5.flashd_bwd_plain(*args, mask=m), dtype)
 
 
-def test_bwd_kernel_is_deterministic(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_is_deterministic(cuda, dtype):
     gen = torch.Generator(device=cuda).manual_seed(5)
     m = tb.MaskSpec("causal")
-    args = _bwd_operands(gen, cuda, 2, 2, 4, 200, 200, 64, m, torch.float32)
+    args = _bwd_operands(gen, cuda, 2, 2, 4, 200, 200, 64, m, dtype)
     first = k5.flashd_bwd(*args, mask=m)
     for a, b_ in zip(first, k5.flashd_bwd(*args, mask=m)):
         assert torch.equal(a, b_)
+
+
+def _bwd_f64(q, k, v, o, lam, do, mask):
+    """K5's formula evaluated exactly (float64) on the same inputs: P =
+    e^{s − Λ} (0 where masked or dead), dS = P∘(dO·Vᵀ − D)·scale, D =
+    rowsum(dO∘O); dK and dV summed over each kv head's group."""
+    g = q.shape[1] // k.shape[1]
+    qd, od, dod = (x.double() for x in (q, o, do))
+    kd, vd = (x.double().repeat_interleave(g, 1) for x in (k, v))
+    scale = q.shape[-1] ** -0.5
+    keep = mask.keep(torch.arange(q.shape[2], device=q.device),
+                     torch.arange(k.shape[2], device=q.device))
+    lamd = lam.double()[..., None]
+    s = qd @ kd.transpose(-1, -2) * scale
+    p = torch.where(keep & (lamd > tb.NEG_INF / 2), torch.exp(s - lamd), torch.zeros_like(s))
+    ds = p * (dod @ vd.transpose(-1, -2) - (dod * od).sum(-1, keepdim=True)) * scale
+    fold = lambda x: x.unflatten(1, (k.shape[1], g)).sum(2)
+    return ds @ kd, fold(ds.transpose(-1, -2) @ qd), fold(p.transpose(-1, -2) @ dod)
+
+
+def _excess(a, exact):
+    """The largest error beyond rtol·|exact|: what atol must cover."""
+    return float(((a.double() - exact).abs() - 1e-4 * exact.abs()).max())
+
+
+def test_bwd_kernel_holds_f32_at_large_scores(cuda):
+    """q and k scaled ×4 (scores up to ±60), f32, S 512, G 2. Any f32
+    evaluation of the backward is ~1e-4 off there (the CPU test
+    tests/test_torch_tc_bwd_numerics.py shows the reference's own), so the
+    kernel and the plain version are both held against the exact (float64)
+    evaluation of the formula on the same inputs: the kernel's excess over
+    rtol 1e-4 stays within atol 1e-5 or within the plain version's own."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    m = tb.MaskSpec("causal")
+    q = torch.randn(1, 512, 4, 128, generator=gen, device=cuda).transpose(1, 2) * 4
+    k = torch.randn(1, 512, 2, 128, generator=gen, device=cuda).transpose(1, 2) * 4
+    v = torch.randn(1, 512, 2, 128, generator=gen, device=cuda).transpose(1, 2)
+    do = torch.randn(1, 512, 4, 128, generator=gen, device=cuda).transpose(1, 2)
+    o, lam = k1.flashd_fwd_plain(q, k, v, mask=m)
+    args = (q, k, v, o, lam, do)
+    for got, plain, exact in zip(k5.flashd_bwd(*args, mask=m), k5.flashd_bwd_plain(*args, mask=m),
+                                 _bwd_f64(*args, m)):
+        assert _excess(got, exact) <= max(1e-5, _excess(plain, exact)), (
+            _excess(got, exact), _excess(plain, exact))
 
 
 @pytest.mark.parametrize("case", FWD_CASES)
@@ -334,7 +380,7 @@ def test_decode_kernel_matches_plain(cuda, case, group):
     start = (torch.tensor([0, 0, 40, 200, 10, 299], dtype=torch.int32, device=cuda)
              if with_start else None)
     kw = dict(window=window, chunk=chunk, start=start, fused=fused, return_lam=True,
-              n_splits=k2.gpu_decode_splits(s_max) if n_splits is None else n_splits)
+              n_splits=k2.gpu_decode_splits(b, hkv, s_max) if n_splits is None else n_splits)
     o, lam = k2.flashd_decode(q, kc, vc, cl, **kw)
     o_p, lam_p = k2.flashd_decode_plain(q, kc, vc, cl, **kw)
     _close(o, o_p)
@@ -353,6 +399,73 @@ def test_decode_kernel_head_dims(cuda, d):
     kc = torch.randn(3, 4, 77, d, generator=gen, device=cuda)
     cl = torch.tensor([77, 5, 40], dtype=torch.int32, device=cuda)
     _close(k2.flashd_decode(q, kc, kc, cl, n_splits=4), k2.flashd_decode_plain(q, kc, kc, cl, n_splits=4))
+
+
+K2_SWEEP = [(b, s_max) for b in (1, 4, 32) for s_max in (1, 64, 512, 4096)]
+
+
+@pytest.mark.parametrize("b, s_max", K2_SWEEP)
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_decode_kernel_default_splits_sweep(cuda, b, s_max, group):
+    """K2 at its own split choice (`gpu_decode_splits` for this card)
+    against the plain version at the same splits: cache_len 0, 1, full and
+    a ragged one; head dims 32, 48, 64, 128; f32 and bf16; fused and
+    unfused; an empty row exactly 0 / NEG_INF."""
+    gen = torch.Generator(device=cuda).manual_seed(b * 10_000 + s_max + group)
+    hkv = 2
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = k2.gpu_decode_splits(b, hkv, s_max, n_sm)
+    pattern = [0, 1, s_max, max(1, 2 * s_max // 3)]
+    lengths = [[x] for x in pattern[:3]] if b == 1 else [[pattern[i % 4] for i in range(b)]]
+    for d in (32, 48, 64, 128):
+        q = torch.randn(b, hkv * group, d, generator=gen, device=cuda)
+        kc = torch.randn(b, s_max, hkv, d, generator=gen, device=cuda).transpose(1, 2)
+        vc = torch.randn(b, s_max, hkv, d, generator=gen, device=cuda).transpose(1, 2)
+        for lens in lengths:
+            cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+            for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+                x = (q.to(dtype), kc.to(dtype), vc.to(dtype))
+                for fused in (True, False):
+                    o, lam = k2.flashd_decode(*x, cl, fused=fused, return_lam=True)
+                    o_p, lam_p = k2.flashd_decode_plain(*x, cl, n_splits=n, fused=fused,
+                                                        return_lam=True)
+                    _close(o, o_p, tol)
+                    if dtype == torch.float32:
+                        _close(lam, lam_p)
+                    empty = cl == 0
+                    assert (o[empty] == 0).all() and (lam[empty] == tb.NEG_INF).all()
+
+
+def test_decode_kernel_is_bitwise_repeatable(cuda):
+    """The fused merge runs in split order whichever CTA arrives last."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn(4, 16, 128, generator=gen, device=cuda)
+    kc = torch.randn(4, 512, 8, 128, generator=gen, device=cuda).transpose(1, 2)
+    vc = torch.randn(4, 512, 8, 128, generator=gen, device=cuda).transpose(1, 2)
+    cl = torch.tensor([512, 300, 17, 1], dtype=torch.int32, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (q.to(dtype), kc.to(dtype), vc.to(dtype))
+        o, lam = k2.flashd_decode(*x, cl, return_lam=True)
+        for _ in range(3):
+            o2, lam2 = k2.flashd_decode(*x, cl, return_lam=True)
+            assert torch.equal(o, o2) and torch.equal(lam, lam2)
+
+
+def test_decode_wrapper_refuses_unaligned_views(cuda):
+    """K2 copies 16-byte rows: a cache whose row stride is 129 floats, or
+    a q whose base is one bf16 off, raises and launches nothing."""
+    q = torch.randn(2, 4, 128, device=cuda)
+    ok = torch.randn(2, 64, 2, 128, device=cuda).transpose(1, 2)
+    bad = torch.randn(2, 64, 2, 129, device=cuda)[..., :128].transpose(1, 2)
+    cl = torch.tensor([64, 10], dtype=torch.int32, device=cuda)
+    before = k2.launches
+    for args in ((q, bad, ok), (q, ok, bad)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            k2.flashd_decode(*args, cl)
+    off = torch.randn(2 * 4 * 128 + 1, device=cuda).bfloat16()[1:].reshape(2, 4, 128)
+    with pytest.raises(ValueError, match="16 bytes"):
+        k2.flashd_decode(off, ok.bfloat16(), ok.bfloat16(), cl)
+    assert k2.launches == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

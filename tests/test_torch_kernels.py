@@ -24,7 +24,8 @@ from repro.kernels.flashd_fwd import flashd_fwd_pallas
 from repro_torch.core import attention as tatt
 from repro_torch.core import blockwise as tb
 from repro_torch.kernels import ops, tuning as ttune
-from repro_torch.kernels.flashd_decode import flashd_decode, flashd_decode_plain
+from repro_torch.kernels.flashd_decode import (
+    H100_SMS, flashd_decode, flashd_decode_plain, gpu_decode_splits)
 from repro_torch.kernels.flashd_fwd import flashd_fwd, flashd_fwd_plain
 
 TOL = 5e-5
@@ -111,6 +112,23 @@ def test_decode_fused_and_unfused_orders_agree():
     a = flashd_decode_plain(q, kc, kc, cl, n_splits=7, fused=True)
     b = flashd_decode_plain(q, kc, kc, cl, n_splits=7, fused=False)
     _close(a, b, 1e-6)
+
+
+@pytest.mark.parametrize("b, hkv, s_max", [(4, 8, 512), (1, 8, 4096), (32, 8, 512), (1, 1, 64),
+                                            (8, 8, 4096), (4, 8, 1), (32, 2, 1)])
+def test_gpu_decode_splits_fill_the_card(b, hkv, s_max):
+    """K2's split choice is a function of shapes only: at least 2 CTAs per
+    SM of an H100 wherever the cache has positions enough (the engine's
+    decode shape, B 4 × Hkv 8 × S_max 512, among them), exactly one split
+    at S_max 1, and splits of 16 … 64 positions that cover the cache."""
+    n = gpu_decode_splits(b, hkv, s_max)
+    split = -(-s_max // n)
+    assert n == 1 if s_max == 1 else 16 <= split <= 64
+    assert (n - 1) * split < s_max <= n * split
+    if s_max >= 64 * 2 * H100_SMS / (b * hkv):  # positions enough for two 64-row CTAs per SM
+        assert n * b * hkv >= 2 * H100_SMS
+    if (b, hkv, s_max) == (4, 8, 512):
+        assert n * b * hkv >= 2 * H100_SMS
 
 
 @pytest.mark.parametrize("window,chunk,n_splits", [(0, 0, None), (0, 0, 3), (7, 0, 2), (0, 8, 4)])

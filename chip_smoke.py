@@ -11,7 +11,7 @@ non-zero:
   2. building the CUDA kernels from src/repro_torch/csrc with nvcc, one
      process per source, all at once; per library the tensor-core (HGMMA,
      HMMA) and FFMA instruction counts of its SASS (cuobjdump), asserting
-     that K1, K5 and K6 run on the tensor cores;
+     that K1, K4, K5 and K6 run on the tensor cores;
   3. K1 `flashd_fwd` against `flashd_fwd_plain` at qwen3-0.6b widths
      (Hq 16, Hkv 8, d 128, Sq = Skv = 2048): four mask kinds, q_offset,
      skip on/off, fully masked rows; f32 and bf16; timed in both dtypes
@@ -31,13 +31,16 @@ non-zero:
   6. the same engine run in bf16, the model's own dtype;
   7. K3 `flashd_decode_paged` against `flashd_decode_paged_plain` at
      qwen3-0.6b widths (B 8, shuffled pages, NaN on the garbage page 0,
-     pages of 64 and 16, cache_len 0 … full, window, chunk; bf16, an int8
-     pool) and against K2 on the gathered view; timed at the engine's
-     paged decode shape;
+     pages of 64, 16 and 4, cache_len 0 … full, window, chunk; bf16, an
+     int8 pool), against the plain version in the kernel's split order and
+     against K2 on the gathered view; timed at the engine's paged decode
+     shape with pages of 64 and of 16, beside K2 on the gathered pages
+     (the same live tokens);
   8. K4 `flashd_varlen` against `flashd_varlen_plain` on packs built by
      the engine's packer (decode rows + a mid-sequence prefill chunk; whole
-     prompts + verify rows + a padding block), block_q 8 and 16, bf16 and
-     int8; padding rows exactly 0; timed on the mixed-step pack;
+     prompts + verify rows + a padding block; four whole prompts of 512),
+     block_q 8 and 16, bf16 and int8; padding rows exactly 0; timed on the
+     mixed-step pack and on the four-prompt pack (the tensor-core body);
   9. the paged and the mixed serving loops at full width, f32, on phase
      5's weights and requests: kernel path vs plain path, tokens identical
      to each other and to phase 5's contiguous loop, K3 / K4 launched, the
@@ -88,7 +91,7 @@ BF16_LOSS_REL = 1e-2  # bf16 step-0 loss vs f32: 8-bit mantissa, averaged over 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 # dense peaks: f32 on the CUDA cores; TF32 and bf16 on the tensor cores
 PEAK_OPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
-TC_KERNELS = ("flashd_fwd", "fa2_fwd", "flashd_bwd")  # the sources whose products run on the tensor cores
+TC_KERNELS = ("flashd_fwd", "fa2_fwd", "flashd_bwd", "flashd_varlen")  # products on the tensor cores
 
 
 def _line(phase: int, text: str) -> None:
@@ -279,7 +282,7 @@ def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=())
     top = ", ".join(f"{name[:48]} {100 * us / total_us:.1f}%" for name, us in rows[:5])
     classes = {"FLASH-D/FA2 kernels": 0.0, "GEMM": 0.0, "other": 0.0}
     for name, us in rows:
-        if name.startswith("void (anonymous namespace)::") or "decode_merge" in name:  # csrc/*.cu
+        if name.startswith("void (anonymous namespace)::"):  # csrc/*.cu
             classes["FLASH-D/FA2 kernels"] += us
         elif "gemm" in name.lower() or "xmma" in name or "splitKreduce" in name:
             classes["GEMM"] += us
@@ -603,23 +606,25 @@ def main() -> int:
     cl3 = torch.tensor(lengths, dtype=torch.int32, device=dev)
     q3 = torch.randn(len(lengths), hq, d, generator=gen, device=dev)
     k3_err, k3_report = 0.0, []
-    for page in (64, 16):
+    for page in (64, 16, 4):
         n_tbl = max_len // page
+        n3 = k2.gpu_decode_splits(len(lengths), hkv, max_len, n_sm)  # the kernel's split order
         kp, vp, tbl, _, _ = _paged_pool(gen, dev, lengths, n_tbl, page, hkv, d, torch.float32)
         for name, kw in (("", {}), (" window100", dict(window=100)),
                          (" chunk128", dict(chunk=128))):
             o = k2.flashd_decode_paged(q3, kp, vp, tbl, cl3, **kw)
             o_p = k2.flashd_decode_paged_plain(q3, kp, vp, tbl, cl3, **kw)
+            o_s = k2.flashd_decode_paged_plain(q3, kp, vp, tbl, cl3, n_splits=n3, **kw)
             # K2 on the gathered contiguous view (page 0's NaN lies past every cache_len)
             kc3 = gather_pages(kp, tbl).transpose(1, 2)
             vc3 = gather_pages(vp, tbl).transpose(1, 2)
             o_2 = k2.flashd_decode(q3, kc3, vc3, cl3, **kw)
             torch.cuda.synchronize()
-            e, e2 = _err(o, o_p), _err(o, o_2)
-            assert torch.isfinite(o).all() and e <= F32_TOL and e2 <= F32_TOL, (page, name, e, e2)
+            e, e_s, e2 = _err(o, o_p), _err(o, o_s), _err(o, o_2)
+            assert torch.isfinite(o).all() and max(e, e_s, e2) <= F32_TOL, (page, name, e, e_s, e2)
             assert (o[0] == 0).all(), "empty cache row"
             k3_err = max(k3_err, e)
-            k3_report.append(f"page {page}{name} {e:.2e} (vs K2 {e2:.2e})")
+            k3_report.append(f"page {page}{name} {e:.2e} (split order {e_s:.2e}, vs K2 {e2:.2e})")
         kb, vb = kp.bfloat16(), vp.bfloat16()
         e3_bf16 = _err(k2.flashd_decode_paged(q3.bfloat16(), kb, vb, tbl, cl3),
                        k2.flashd_decode_paged_plain(q3.bfloat16(), kb, vb, tbl, cl3))
@@ -630,11 +635,26 @@ def main() -> int:
                                                         v_scale=vs))
         assert torch.isfinite(oi).all() and e3_int8 <= F32_TOL, ("int8 paged", page, e3_int8)
         k3_report.append(f"page {page} bf16 {e3_bf16:.2e} int8 {e3_int8:.2e}")
-    # timed at the engine's paged decode shape: B 4, max_len 512, page 64, full caches
-    page, n_tbl = 64, max_len // 64
-    kp, vp, tbl, _, _ = _paged_pool(gen, dev, [max_len] * be, n_tbl, page, hkv, d, torch.float32)
+    k3_repeat = all(torch.equal(k2.flashd_decode_paged(q3, kp, vp, tbl, cl3),
+                                k2.flashd_decode_paged(q3, kp, vp, tbl, cl3)) for _ in range(2))
+    assert k3_repeat, "K3 is not bitwise repeatable"
+    # timed at the engine's paged decode shape: B 4, max_len 512, full caches,
+    # pages of 64 (the engine's) and of 16
     cle3 = torch.full((be,), max_len, dtype=torch.int32, device=dev)
-    k3_ms = _time_ms(lambda: k2.flashd_decode_paged(qe, kp, vp, tbl, cle3), reps=20, flush=flush)
+    n3e = k2.gpu_decode_splits(be, hkv, max_len, n_sm)
+    k3_t = {}
+    for page in (64, 16):
+        kp, vp, tbl, _, _ = _paged_pool(gen, dev, [max_len] * be, max_len // page, page, hkv, d,
+                                        torch.float32)
+        kpb, vpb = kp.bfloat16(), vp.bfloat16()
+        for dt, args in (("f32", (qe, kp, vp)), ("bf16", (qeb, kpb, vpb))):
+            fn = lambda args=args, tbl=tbl: k2.flashd_decode_paged(*args, tbl, cle3)
+            k3_t[page, dt] = (_time_ms(fn, reps=20, flush=flush), _device_ms(fn, flush))
+        if page == 64:
+            pool64 = (kp, vp, kpb, vpb, tbl)
+    kp, vp, kpb, vpb, tbl = pool64
+    k3_ms, k3_dev_ms = k3_t[64, "f32"]
+    k3_bf16_ms, k3_bf16_dev_ms = k3_t[64, "bf16"]
     k3_plain_ms = _time_ms(lambda: k2.flashd_decode_paged_plain(qe, kp, vp, tbl, cle3), reps=20,
                            flush=flush)
     k3_gather_ms = _time_ms(lambda: (gather_pages(kp, tbl), gather_pages(vp, tbl)), reps=20,
@@ -643,28 +663,28 @@ def main() -> int:
     k3_sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(qe4, kg, vg, enable_gqa=True),
                           reps=20, flush=flush)
     k3_lib_ms = k3_gather_ms + k3_sdpa_ms
-    kpb, vpb = kp.bfloat16(), vp.bfloat16()
-    k3_bf16_ms = _time_ms(lambda: k2.flashd_decode_paged(qeb, kpb, vpb, tbl, cle3), reps=20,
-                          flush=flush)
     kgb, vgb = gather_pages(kpb, tbl).transpose(1, 2), gather_pages(vpb, tbl).transpose(1, 2)
     k3_lib_bf16_ms = _time_ms(lambda: (gather_pages(kpb, tbl), gather_pages(vpb, tbl)), reps=20,
                               flush=flush) + _time_ms(lambda: F.scaled_dot_product_attention(
                                   qeb[:, :, None], kgb, vgb, enable_gqa=True), reps=20, flush=flush)
-    k3_dev_ms = _device_ms(lambda: k2.flashd_decode_paged(qe, kp, vp, tbl, cle3), flush)
-    k3_bf16_dev_ms = _device_ms(lambda: k2.flashd_decode_paged(qeb, kpb, vpb, tbl, cle3), flush)
+    # K2 on the gathered contiguous view of the same pages, timed beside K3
+    k2_t7 = {dt: _device_ms(lambda x=x: k2.flashd_decode(*x, cle3), flush)
+             for dt, x in (("f32", (qe, kg, vg)), ("bf16", (qeb, kgb, vgb)))}
     live3 = be * max_len
     k3_ops = 4 * d * live3 * hq
     k3_bound, k3_bf16_bound = (_bytes_bound(2 * live3 * hkv * d * size + 2 * be * hq * d * size,
                                             k3_ops) for size in (4, 2))
+    times3 = "; ".join(f"page {pg} {dt} {ev * 1e3:.2f} us (device {dv * 1e3:.2f} us)"
+                       for (pg, dt), (ev, dv) in k3_t.items())
     _line(7, f"K3 flashd_decode_paged f32 max|Δ| vs plain (B {len(lengths)}, cache_len {lengths}, "
-             f"NaN page 0): {', '.join(k3_report)} (bound {F32_TOL}; bf16 {BF16_TOL}); at B {be}, "
-             f"max_len {max_len}, page {page}, {live3} live tokens f32: kernel "
-             f"{k3_ms * 1e3:.1f} us, plain {k3_plain_ms * 1e3:.1f} us, library {k3_lib_ms * 1e3:.1f} us (gather_pages "
-             f"{k3_gather_ms * 1e3:.1f} us + sdpa {k3_sdpa_ms * 1e3:.1f} us), bound "
-             f"{k3_bound * 1e3:.2f} us (bytes); bf16: kernel {k3_bf16_ms * 1e3:.1f} us, library "
-             f"{k3_lib_bf16_ms * 1e3:.1f} us, bound {k3_bf16_bound * 1e3:.2f} us (bytes); device "
-             f"time of the kernel {k3_dev_ms * 1e3:.2f} us f32, {k3_bf16_dev_ms * 1e3:.2f} us bf16 "
-             f"{ph}")
+             f"NaN page 0): {', '.join(k3_report)} (bound {F32_TOL}; bf16 {BF16_TOL}); bitwise "
+             f"equal on repeat calls: {k3_repeat}; at B {be}, max_len {max_len}, {n3e} splits "
+             f"({n3e * be * hkv} CTAs), {live3} live tokens, events (device time): {times3}; "
+             f"K2 on the gathered pages device {k2_t7['f32'] * 1e3:.2f} us f32, "
+             f"{k2_t7['bf16'] * 1e3:.2f} us bf16; page 64 f32: plain {k3_plain_ms * 1e3:.1f} us, "
+             f"library {k3_lib_ms * 1e3:.1f} us (gather_pages {k3_gather_ms * 1e3:.1f} us + sdpa "
+             f"{k3_sdpa_ms * 1e3:.1f} us), bound {k3_bound * 1e3:.2f} us (bytes); bf16 library "
+             f"{k3_lib_bf16_ms * 1e3:.1f} us, bound {k3_bf16_bound * 1e3:.2f} us (bytes) {ph}")
 
     # ---- 8. K4 against its plain version, on packs from the engine's packer ----
     ph = _Phase()
@@ -759,6 +779,42 @@ def main() -> int:
                                                     block_q=mixed_bq), flush)
     k4_bf16_dev_ms = _device_ms(lambda: k4.flashd_varlen(qvb, kpb, vpb, tbl, sid, qp, kvl,
                                                          block_q=mixed_bq), flush)
+    k4_repeat = all(torch.equal(k4.flashd_varlen(qv, kp, vp, tbl, sid, qp, kvl, block_q=mixed_bq),
+                                k4.flashd_varlen(qv, kp, vp, tbl, sid, qp, kvl, block_q=mixed_bq))
+                    for _ in range(2))
+    assert k4_repeat, "K4 is not bitwise repeatable"
+    # four whole prompts of 512 at the engine's block_q: every block takes the
+    # tensor-core body; SDPA's causal call on the gathered prompts is the yardstick
+    n_pr, s_pr = 4, 512
+    prompts_plan = StepPlan(segments=tuple(
+        Segment(slot=i, tokens=np.zeros(s_pr, np.int32), start=0, emits=True)
+        for i in range(n_pr)), n_tokens=n_pr * s_pr)
+    _, sid_np4, qpos_np4, kvl_np4, _ = pack_plan(prompts_plan, mixed_bq, n_pr)
+    sid4, qp4, kvl4 = (torch.as_tensor(x, device=dev) for x in (sid_np4, qpos_np4, kvl_np4))
+    kp4, vp4, tbl4, _, _ = _paged_pool(gen, dev, kvl_np4.tolist(), n_tbl, page, hkv, d,
+                                       torch.float32)
+    q4 = torch.randn(len(sid_np4), hq, d, generator=gen, device=dev)
+    pr_args = {"f32": (q4, kp4, vp4), "bf16": (q4.bfloat16(), kp4.bfloat16(), vp4.bfloat16())}
+    pr_err = {}
+    for dt, x in pr_args.items():
+        o4 = k4.flashd_varlen(*x, tbl4, sid4, qp4, kvl4, block_q=mixed_bq)
+        pr_err[dt] = _err(o4, k4.flashd_varlen_plain(*x, tbl4, sid4, qp4, kvl4, block_q=mixed_bq))
+        assert torch.isfinite(o4).all() and pr_err[dt] <= (F32_TOL if dt == "f32" else BF16_TOL), \
+            ("prompt pack", dt, pr_err[dt])
+    k4_err = max(k4_err, pr_err["f32"])
+    pr_t = {}
+    for dt, x in pr_args.items():
+        fn = lambda x=x: k4.flashd_varlen(*x, tbl4, sid4, qp4, kvl4, block_q=mixed_bq)
+        pr_t[dt] = (_time_ms(fn, reps=20, flush=flush), _device_ms(fn, flush))
+    sd = [x.reshape(n_pr, s_pr, hq, d).transpose(1, 2).contiguous() for x in (q4,)]
+    sd += [gather_pages(p_, tbl4).transpose(1, 2).contiguous() for p_ in (kp4, vp4)]
+    pr_lib = {dt: _time_ms(lambda x=[y.to(dtype) for y in sd]: F.scaled_dot_product_attention(
+        *x, is_causal=True, enable_gqa=True), reps=20, flush=flush)
+        for dt, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))}
+    del sd
+    pr_ops = 4 * d * hq * n_pr * s_pr * (s_pr + 1) // 2
+    pr_elems = 2 * n_pr * s_pr * hq * d + 2 * n_pr * s_pr * hkv * d  # q, O; live K, V
+    pr_bounds = _attn_bounds(pr_ops, 4 * pr_elems, 2 * pr_elems)
     _line(8, f"K4 flashd_varlen f32 max|Δ| vs plain (NaN page 0, page {page}, window 50 too): "
              f"{'; '.join(k4_report)} (bound {F32_TOL}; bf16 {BF16_TOL}); padding rows exactly 0; "
              f"mixed-step pack (T {len(sid_np)}, block_q {mixed_bq}, {n_rows} rows, {live_tok} "
@@ -766,7 +822,15 @@ def main() -> int:
              f"sdpa with a boolean mask over the gathered rows {k4_lib_ms * 1e3:.1f} us, bound "
              f"{k4_bound * 1e3:.2f} us ({k4_bound_by}); bf16: kernel {k4_bf16_ms * 1e3:.1f} us, "
              f"sdpa {k4_lib_bf16_ms * 1e3:.1f} us, bound {k4_bf16_bound * 1e3:.2f} us; device time "
-             f"of the kernel {k4_dev_ms * 1e3:.2f} us f32, {k4_bf16_dev_ms * 1e3:.2f} us bf16 {ph}")
+             f"of the kernel {k4_dev_ms * 1e3:.2f} us f32, {k4_bf16_dev_ms * 1e3:.2f} us bf16; "
+             f"bitwise equal on repeat calls: {k4_repeat}; {n_pr} whole prompts of {s_pr} (T "
+             f"{len(sid_np4)}, block_q {mixed_bq}): max|Δ| vs plain f32 {pr_err['f32']:.2e}, bf16 "
+             f"{pr_err['bf16']:.2e}; "
+             + "; ".join(f"{dt} kernel {ev * 1e3:.1f} us (device {dv * 1e3:.1f} us), sdpa causal "
+                         f"{pr_lib[dt] * 1e3:.1f} us" for dt, (ev, dv) in pr_t.items())
+             + "; " + _fmt_bounds({k_: pr_bounds[k_] for k_ in ("3xtf32", "bf16")}, pr_ops,
+                                  {"kernel f32": pr_t["f32"][1], "kernel bf16": pr_t["bf16"][1]})
+             + f" {ph}")
 
     # ---- 9. the paged and mixed loops at full width: kernels vs plain ----
     ph = _Phase()
@@ -1106,7 +1170,12 @@ def main() -> int:
          "plain_ms": k3_plain_ms, "bound_ms": k3_bound, "bound_by": "bytes",
          "library_ms": k3_lib_ms, "bf16_ms": k3_bf16_ms, "bf16_library_ms": k3_lib_bf16_ms,
          "bf16_bound_ms": k3_bf16_bound, "device_ms": k3_dev_ms, "bf16_device_ms": k3_bf16_dev_ms,
-         "shape": f"B{be} Hq{hq} Hkv{hkv} d{d} page 64, 8 pages/seq, {live3} live tokens f32"},
+         "page16_ms": k3_t[16, "f32"][0], "page16_device_ms": k3_t[16, "f32"][1],
+         "page16_bf16_ms": k3_t[16, "bf16"][0], "page16_bf16_device_ms": k3_t[16, "bf16"][1],
+         "k2_device_ms": k2_t7["f32"], "k2_bf16_device_ms": k2_t7["bf16"],
+         "shape": f"B{be} Hq{hq} Hkv{hkv} d{d} page 64 (8 pages/seq; page16_*: 32 pages/seq), "
+                  f"{live3} live tokens, {n3e} splits, f32 and bf16 (ms: CUDA events; device_ms: "
+                  f"torch.profiler; k2_*: K2 on the gathered pages, same live tokens)"},
         {"name": "flashd_varlen", "route": "cuda",
          "source": "src/repro_torch/csrc/flashd_varlen.cu",
          "replaces": "src/repro/kernels/flashd_varlen.py:159",
@@ -1114,8 +1183,15 @@ def main() -> int:
          "plain_ms": k4_plain_ms, "bound_ms": k4_bound, "bound_by": k4_bound_by,
          "library_ms": k4_lib_ms, "bf16_ms": k4_bf16_ms, "bf16_library_ms": k4_lib_bf16_ms,
          "bf16_bound_ms": k4_bf16_bound, "device_ms": k4_dev_ms, "bf16_device_ms": k4_bf16_dev_ms,
+         "prompts_ms": pr_t["f32"][0], "prompts_device_ms": pr_t["f32"][1],
+         "prompts_bf16_ms": pr_t["bf16"][0], "prompts_bf16_device_ms": pr_t["bf16"][1],
+         "prompts_library_ms": pr_lib["f32"], "prompts_bf16_library_ms": pr_lib["bf16"],
+         "prompts_bound_ms": pr_bounds["3xtf32"][0], "prompts_bf16_bound_ms": pr_bounds["bf16"][0],
          "shape": f"T{len(sid_np)} block_q {mixed_bq} ({n_rows} rows: 3 decode + a 16-row chunk) "
-                  f"Hq{hq} Hkv{hkv} d{d} page 64, {live_tok} live tokens f32"},
+                  f"Hq{hq} Hkv{hkv} d{d} page 64, {live_tok} live tokens, f32 and bf16; prompts_*: "
+                  f"{n_pr} whole prompts of {s_pr} at block_q {mixed_bq} (tensor cores; library: "
+                  f"SDPA causal on the gathered prompts; bounds, the larger of operations and "
+                  f"bytes: 3xTF32 {pr_bounds['3xtf32'][1]}, bf16 {pr_bounds['bf16'][1]})"},
         {"name": "flashd_bwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_bwd.cu",
          "replaces": "src/repro/kernels/flashd_bwd.py:120",
          "launches": train_launches["flashd_bwd"], "max_abs_err": k5_err, "ms": k5_ms,

@@ -29,18 +29,19 @@ partials with the port's `merge_partials` tree, so the two orders can be
 held against each other. Every operand's base and batch / head / row
 strides must be multiples of 16 bytes (`check_copy_alignment`).
 
-K3 is a two-launch body with one page per split: the split CTA reads its
-sequence's block table entry tbl[b, ip] itself (the TPU resolved it in the
-DMA descriptors) and reads that physical page of the pool
-[P, page, Hkv, d] by strides. A split past the sequence's live range
-neither reads its table slot nor touches the pool, so dead slots (page 0
-in the engine) are never read. A merge launch blends pages in order, as
-the TPU's fused carry did. An int8 pool with per-(page, head) f32 scales
-is dequantized in the tile, before the scores. Same bound as K2.
+K3 (`flashd_decode_paged`) is the same kernel over a page pool
+[P, page, Hkv, d]: one launch of a CTA per (split, kv head, batch row), the
+splits sized by `gpu_decode_splits` over S_max = N·page, so a split is a run
+of logical positions — several small pages, or a part of a 64-token page.
+The thread that copies row i reads the table entry tbl[b, i // page]
+itself (the TPU resolved it in its DMA descriptors), only for live rows, so
+dead slots (page 0 in the engine) are never followed. An int8 pool with
+per-(page, head) f32 scales is staged as bytes and dequantized as it is
+read, before the scores. The partials merge in split order in the launch,
+as K2's. Same bound as K2.
 
 `launches` counts K2 wrapper calls that launched the kernel;
-`paged_launches` counts K3 wrapper calls (one C call: split and merge
-launches).
+`paged_launches` counts K3 wrapper calls that launched the kernel.
 """
 
 from __future__ import annotations
@@ -76,7 +77,8 @@ _fns = None
 
 
 def gpu_decode_splits(b: int, hkv: int, s_max: int, n_sm: int = H100_SMS) -> int:
-    """K2's own split count, a function of shapes only (no device sync).
+    """K2's and K3's split count (K3: s_max = N·page), a function of shapes
+    only (no device sync).
 
     The TPU heuristic (`tuning.choose_decode_split`) sized splits for VMEM;
     here the point is enough CTAs to keep every SM's copies in flight: the
@@ -180,7 +182,7 @@ def _launchers():
         decode_fn.argtypes = [P] * 10 + [L] * 8 + [I] * 11 + [F, P]
         decode_fn.restype = I
         paged_fn = lib.flashd_decode_paged_launch
-        paged_fn.argtypes = [P] * 10 + [L] * 9 + [I] * 10 + [F, P]
+        paged_fn.argtypes = [P] * 11 + [L] * 9 + [I] * 13 + [F, P]
         paged_fn.restype = I
         _fns = (decode_fn, paged_fn)
     return _fns
@@ -261,7 +263,7 @@ def flashd_decode(
 
 
 # ---------------------------------------------------------------------------
-# K3: paged variant — one page per split, through the block table
+# K3: paged variant — K2's kernel with its rows through the block table
 # ---------------------------------------------------------------------------
 
 def flashd_decode_paged_plain(
@@ -276,11 +278,15 @@ def flashd_decode_paged_plain(
     chunk: int = 0,
     k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
     v_scale: Optional[torch.Tensor] = None,
+    n_splits: Optional[int] = None,
 ) -> torch.Tensor:
     """K3's function in plain PyTorch: gather the table's pages (dequantized
     with the scales), zero every position past cache_len (dead table slots
     may point at a page holding anything), then `flashd_decode_plain` with
-    one split per page and the in-page-order carry."""
+    the in-order carry over `n_splits` runs of ⌈N·page / n_splits⌉
+    positions. The default, one split per page, is the reference's
+    per-page carry; the kernel's own order is
+    `n_splits=gpu_decode_splits(B, Hkv, N·page, SMs)`."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
     from repro_torch.core.attention import _zero_past, gather_pages  # lazy: no cycle
@@ -291,7 +297,8 @@ def flashd_decode_paged_plain(
     vc = _zero_past(gather_pages(v_pages, block_tbl, scales=v_scale), cache_len)
     return flashd_decode_plain(
         q, kc.transpose(1, 2), vc.transpose(1, 2), cache_len, scale=scale,
-        n_splits=n_tbl, window=window, chunk=chunk, fused=True,
+        n_splits=n_tbl if n_splits is None else n_splits, window=window, chunk=chunk,
+        fused=True,
     )
 
 
@@ -300,8 +307,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 def check_pool(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                block_tbl: torch.Tensor, k_scale, v_scale):
-    """Checks shared by the paged kernels (K3, K4). Returns the pool's dtype
-    code and the scales as contiguous f32 (or None)."""
+    """Checks shared by the paged kernels (K3, K4), which copy q rows and
+    pool rows by 16-byte cp.async (`check_copy_alignment`). Returns the
+    pool's dtype code and the scales as contiguous f32 (or None)."""
     check_operands(name, (q,), q.shape[-1])
     check_no_grad(q, k_pages, v_pages)
     for t in (k_pages, v_pages, block_tbl):
@@ -320,6 +328,7 @@ def check_pool(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
             not quantized and k_pages.dtype != q.dtype):
         raise ValueError(f"{name}: pool dtype {k_pages.dtype} with q {q.dtype}: an int8 pool "
                          "needs k_scale/v_scale, any other pool q's dtype")
+    check_copy_alignment(name, (q, k_pages, v_pages))
     if block_tbl.dtype != torch.int32 or not block_tbl.is_contiguous():
         raise ValueError(f"{name}: block_tbl must be a contiguous int32 tensor on the card")
     if not quantized:
@@ -334,8 +343,8 @@ def check_pool(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
 
 
 def flashd_decode_paged(
-    q: torch.Tensor,  # [B, Hq, d] — any strides with a contiguous head dim
-    k_pages: torch.Tensor,  # [P, page, Hkv, d]
+    q: torch.Tensor,  # [B, Hq, d] — 16-byte strides, a contiguous head dim
+    k_pages: torch.Tensor,  # [P, page, Hkv, d] — 16-byte strides
     v_pages: torch.Tensor,  # [P, page, Hkv, d]
     block_tbl: torch.Tensor,  # [B, N] int32, on the card
     cache_len: torch.Tensor,  # [B] int, on the card
@@ -346,7 +355,8 @@ def flashd_decode_paged(
     k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Launch K3. Returns o [B, Hq, d] in q.dtype."""
+    """Launch K3. Returns o [B, Hq, d] in q.dtype; the splits are
+    `gpu_decode_splits(B, Hkv, N·page, SMs)` for this card."""
     global paged_launches
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
@@ -362,19 +372,25 @@ def flashd_decode_paged(
     cache_len = _device_lengths("cache_len", cache_len, b, dev)
     if scale is None:
         scale = float(1.0 / (d ** 0.5))
-    o_part = torch.empty((n_tbl, b, hq, d), dtype=torch.float32, device=dev)
-    lam_part = torch.empty((n_tbl, b, hq), dtype=torch.float32, device=dev)
+    s_max = n_tbl * page
+    n_splits = gpu_decode_splits(b, hkv, s_max,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    split = -(-s_max // n_splits)
+    rows = min(-(-split // 4) * 4, MAX_ROWS)
+    o_part = torch.empty((n_splits, b, hq, d), dtype=torch.float32, device=dev)
+    lam_part = torch.empty((n_splits, b, hq), dtype=torch.float32, device=dev)
     o = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
+    arrivals = torch.empty((b * hkv,), dtype=torch.int32, device=dev)
     rc = _launchers()[1](
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tbl.data_ptr(),
         cache_len.data_ptr(), None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(),
-        o_part.data_ptr(), lam_part.data_ptr(), o.data_ptr(),
+        o_part.data_ptr(), lam_part.data_ptr(), o.data_ptr(), arrivals.data_ptr(),
         q.stride(0), q.stride(1),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2), block_tbl.stride(0),
-        b, hq, hkv, n_tbl, page, d, _DTYPE_CODES[q.dtype], kv_type, window, chunk,
-        float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        b, hq, hkv, n_tbl, page, d, _DTYPE_CODES[q.dtype], kv_type, n_splits, split, rows,
+        window, chunk, float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     paged_launches += 1
     if rc != 0:

@@ -127,10 +127,10 @@ def check_operands(name: str, tensors, head_dim: int) -> None:
 
 
 def check_copy_alignment(name: str, tensors) -> None:
-    """The kernels that stage rows with 16-byte asynchronous copies (K1,
-    K2, K5, K6) need every base address and every batch / head / row
-    stride (of a dim longer than 1) must be a multiple of 16 bytes. A view
-    that breaks this raises here rather than launching."""
+    """Every kernel stages rows with 16-byte asynchronous copies (K1–K6):
+    every base address and every batch / head / row stride (of a dim
+    longer than 1) must be a multiple of 16 bytes. A view that breaks this
+    raises here rather than launching."""
     for t in tensors:
         size = t.element_size()
         bad = [i for i in range(t.dim() - 1) if t.shape[i] > 1 and (t.stride(i) * size) % 16]

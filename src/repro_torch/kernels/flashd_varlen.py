@@ -15,18 +15,27 @@ serving step.
 
 Design. The TPU's (q block, kv head, logical page) grid carried (acc, Λ)
 along the sequential page axis, with the table lookup in the DMA
-descriptors. Here a CTA owns ≤ 32 of a q block's block_q·G rows of one kv
-head and loops over the block's sequence's pages itself, reading
-tbl[seq, ip] only for pages below kv_len, in tiles of ≤ 64 keys with K1's
-tile body; each tile's normalized partial is blended into the carry with
-the sigmoid merge. A page no row of the CTA can see is skipped (the
-reference's conservative rule); a whole padding block reads nothing.
+descriptors. Here one launch runs a CTA per (q block × row group of 64
+live rows, kv head, kv split), the split count from shapes only
+(`gpu_varlen_splits`); a row group takes up to 64 / (block_q·G)
+consecutive blocks of one sequence, so a whole prompt at block_q 8 fills
+four warps. A split is a run of logical positions, and a CTA
+reads only the part of its run below kv_len that some row of its can see
+(the reference's conservative rules), staging K/V by 16-byte cp.async
+through the table. Rows with q_pos < 0 are not computed: one CTA writes
+them as exact zeros, and an all-padding block is only those zeros. A CTA
+with fewer than 16 live rows per kv head (decode rows, short verify
+segments) runs K3's CUDA-core body, masking each row at its own q_pos; one
+with 16 or more (prefill chunks, whole prompts) runs the tensor cores
+(`csrc/attn_tc.cuh`'s products: bf16 with P rounded to bf16, f32 as
+3xTF32) with K1's FLASH-D carry. The last CTA of a (row group, kv head) to
+arrive blends the live partials in split order, so repeated calls are
+bitwise equal. Every operand's base and strides must be multiples of 16
+bytes (`check_copy_alignment`).
 
 Bound. A mixed step has few query rows per sequence, so the work is close
 to one pass over the live pages — memory bandwidth bounds it, as for
-decode — and a long whole prompt tips it toward K1's operation bound. The
-products are f32 FMA on the CUDA cores (G can be 1); tensor cores are
-later work.
+decode — and a long whole prompt tips it toward K1's operation bound.
 
 `launches` counts wrapper calls that launched the kernel.
 """
@@ -39,12 +48,43 @@ from typing import Optional
 import torch
 
 from repro_torch.core.blockwise import NEG_INF, merge_pair
-from repro_torch.kernels.flashd_decode import _DTYPE_CODES, check_pool
+from repro_torch.kernels.flashd_decode import CTAS_PER_SM, H100_SMS, _DTYPE_CODES, check_pool
 
-__all__ = ["flashd_varlen", "flashd_varlen_plain", "launches"]
+__all__ = ["flashd_varlen", "flashd_varlen_plain", "gpu_varlen_splits", "launches"]
+
+ROW_GROUP = 64  # live rows per CTA (RB in the source): four 16-row mma tiles
+MAX_GROUP_BLOCKS = 8  # a row group takes at most 8 q blocks of one sequence
+SPLIT_STEP = 64  # a split is a multiple of 64 positions: one tile or chunk …
+MAX_SPLITS = 64  # … and there are at most 64 of them (the merge holds their weights)
 
 launches = 0
 _fn = None
+
+
+def _row_groups(block_q: int, group: int):
+    """(row groups a q block, q blocks a row group, partial rows a CTA):
+    a block of block_q·G ≥ 64 rows is cut into groups of 64; smaller blocks
+    join up to 64 / (block_q·G) of them (at most MAX_GROUP_BLOCKS)."""
+    rows = block_q * group
+    bpg = min(MAX_GROUP_BLOCKS, max(1, ROW_GROUP // rows))
+    return -(-rows // ROW_GROUP), bpg, min(ROW_GROUP, rows * bpg)
+
+
+def gpu_varlen_splits(n_blocks: int, block_q: int, group: int, hkv: int, s_max: int,
+                      n_sm: int = H100_SMS) -> int:
+    """K4's split count, a function of shapes only (no device sync): the
+    CTAs of a split that can hold rows (row groups × Hkv, counting groups
+    of joined blocks as one) get enough splits to put CTAS_PER_SM CTAs on
+    every SM, a split being a multiple of SPLIT_STEP positions, at most
+    MAX_SPLITS of them. At the mixed step's pack (T 64, block_q 8, G 2, Hkv
+    8, S 512) that is 8 splits of 64; a pack of four 512-token prompts at
+    block_q 8 (64 groups of 4 blocks) takes 2 splits of 256."""
+    rg, bpg, _ = _row_groups(block_q, group)
+    ctas = -(-n_blocks // bpg) * rg * hkv
+    want = -(-CTAS_PER_SM * n_sm // max(ctas, 1))
+    split = max(-(-s_max // want), -(-s_max // MAX_SPLITS))
+    split = max(-(-split // SPLIT_STEP) * SPLIT_STEP, SPLIT_STEP)
+    return -(-max(s_max, 1) // split)
 
 
 def flashd_varlen_plain(
@@ -62,12 +102,15 @@ def flashd_varlen_plain(
     block_q: int,
     k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
     v_scale: Optional[torch.Tensor] = None,
+    n_splits: Optional[int] = None,
 ) -> torch.Tensor:
-    """K4's function in plain PyTorch: for every q block, the logical pages
-    of its sequence in order, each page's normalized partial
-    (`_varlen_partial`) blended into the (acc, Λ) carry. Positions past a
-    sequence's kv_len are zeroed before use (dead table slots may point at
-    a page holding anything). → o [T, Hq, dv] in q.dtype."""
+    """K4's function in plain PyTorch: for every q block, its sequence's
+    positions in runs, each run's normalized partial (`_varlen_partial`)
+    blended in order into the (acc, Λ) carry. The default run is a page,
+    the reference's per-page carry; `n_splits` takes the kernel's order,
+    runs of ⌈N·page / n_splits⌉ positions. Positions past a sequence's
+    kv_len are zeroed before use (dead table slots may point at a page
+    holding anything). → o [T, Hq, dv] in q.dtype."""
     t, hq, d = q.shape
     _, page, hkv, dv = v_pages.shape
     n_tbl = block_tbl.shape[1]
@@ -78,33 +121,31 @@ def flashd_varlen_plain(
         raise ValueError(f"packed length {t} not a multiple of block_q={block_q}")
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be passed together")
+    from repro_torch.core.attention import gather_pages  # lazy: no cycle
+
     dev = q.device
     nb = t // block_q
+    s_max = n_tbl * page
+    run = page if n_splits is None else -(-s_max // max(1, min(n_splits, s_max)))
     seq_ids = torch.as_tensor(seq_ids, device=dev).long()
     q_pos = torch.as_tensor(q_pos, device=dev).long().reshape(nb, block_q)
     kv_len = torch.as_tensor(kv_len, device=dev).reshape(-1).long()
-    tbl = block_tbl.long()
     blk_seq = seq_ids[::block_q]
     seq = torch.clamp(blk_seq, min=0)
     blk_len = torch.where(blk_seq >= 0, kv_len[seq], 0)  # [nb]; padding blocks see nothing
+    kc = gather_pages(k_pages, block_tbl, scales=k_scale)  # [B, S, Hkv, d], dequantized
+    vc = gather_pages(v_pages, block_tbl, scales=v_scale)
 
     qf = q.float().reshape(nb, block_q, hkv, g, d).permute(0, 2, 1, 3, 4)
     qf = qf.reshape(nb, hkv, block_q * g, d)  # rows ordered (t, g), as the TPU tile
     rows_pos = q_pos.repeat_interleave(g, dim=1)[:, None, :, None]  # [nb, 1, R, 1]
     acc = torch.zeros((nb, hkv, block_q * g, dv), dtype=torch.float32, device=dev)
     lam = torch.full((nb, hkv, block_q * g), NEG_INF, dtype=torch.float32, device=dev)
-    for ip in range(n_tbl):
-        lo = ip * page
-        pid = tbl[seq, ip]  # [nb]
-        pos = lo + torch.arange(page, device=dev)
-        inside = (pos[None, :] < blk_len[:, None])[:, :, None, None]  # [nb, page, 1, 1]
-        k = k_pages[pid].float()
-        v = v_pages[pid].float()
-        if k_scale is not None:  # dequant in the tile: one scale per (page, head)
-            k = k * k_scale[pid][:, None, :, None]
-            v = v * v_scale[pid][:, None, :, None]
-        k = torch.where(inside, k, 0.0).permute(0, 2, 1, 3)  # [nb, Hkv, page, d]
-        v = torch.where(inside, v, 0.0).permute(0, 2, 1, 3)
+    for lo in range(0, s_max, run):
+        pos = torch.arange(lo, min(lo + run, s_max), device=dev)
+        inside = (pos[None, :] < blk_len[:, None])[:, :, None, None]  # [nb, run, 1, 1]
+        k = torch.where(inside, kc[seq, lo:lo + run].float(), 0.0).permute(0, 2, 1, 3)
+        v = torch.where(inside, vc[seq, lo:lo + run].float(), 0.0).permute(0, 2, 1, 3)
         s = torch.einsum("bhrd,bhkd->bhrk", qf, k) * scale
         keep = (pos[None, None, None, :] < blk_len[:, None, None, None]) & (
             pos[None, None, None, :] <= rows_pos)
@@ -135,7 +176,7 @@ def _launcher():
 
         fn = load("flashd_varlen").flashd_varlen_launch
         P, L, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P] * 10 + [L] * 11 + [I] * 11 + [F, P]
+        fn.argtypes = [P] * 13 + [L] * 11 + [I] * 16 + [F, P]
         fn.restype = I
         _fn = fn
     return _fn
@@ -150,8 +191,8 @@ def _int32_on(name: str, x: torch.Tensor, n: int, device) -> torch.Tensor:
 
 
 def flashd_varlen(
-    q: torch.Tensor,  # [T, Hq, d] — any strides with a contiguous head dim
-    k_pages: torch.Tensor,  # [P, page, Hkv, d]
+    q: torch.Tensor,  # [T, Hq, d] — 16-byte strides, a contiguous head dim
+    k_pages: torch.Tensor,  # [P, page, Hkv, d] — 16-byte strides
     v_pages: torch.Tensor,  # [P, page, Hkv, d]
     block_tbl: torch.Tensor,  # [B, N] int32, on the card
     seq_ids: torch.Tensor,  # [T] int, on the card
@@ -166,7 +207,8 @@ def flashd_varlen(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch K4. Returns o [T, Hq, d] in q.dtype. T must be a multiple of
-    `block_q`, the granularity the packer aligned segments to."""
+    `block_q`, the granularity the packer aligned segments to. The split
+    count is `gpu_varlen_splits` for this card."""
     global launches
     t, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
@@ -182,16 +224,30 @@ def flashd_varlen(
     kv_len = _int32_on("kv_len", kv_len, b, dev)
     if scale is None:
         scale = float(1.0 / (d ** 0.5))
+    g = hq // hkv
+    s_max = n_tbl * page
+    nb = t // block_q
+    n_splits = gpu_varlen_splits(nb, block_q, g, hkv, s_max,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    split = -(-s_max // n_splits)
+    rg, bpg, rb = _row_groups(block_q, g)  # the launcher checks them against its tile
     o = torch.empty((t, hq, d), dtype=q.dtype, device=dev)
+    o_part = lam_part = arrivals = None
+    if n_splits > 1:
+        nbr = nb * rg
+        o_part = torch.empty((n_splits, nbr, hkv, rb, d), dtype=torch.float32, device=dev)
+        lam_part = torch.empty((n_splits, nbr, hkv, rb), dtype=torch.float32, device=dev)
+        arrivals = torch.empty((nbr * hkv,), dtype=torch.int32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
     rc = _launcher()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), o.data_ptr(),
         block_tbl.data_ptr(), seq_ids.data_ptr(), q_pos.data_ptr(), kv_len.data_ptr(),
-        None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+        ptr(ks), ptr(vs), ptr(o_part), ptr(lam_part), ptr(arrivals),
         q.stride(0), q.stride(1), o.stride(0), o.stride(1),
         k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.stride(0), v_pages.stride(1), v_pages.stride(2), block_tbl.stride(0),
         t, hq, hkv, n_tbl, page, block_q, d, _DTYPE_CODES[q.dtype], kv_type, window, chunk,
-        float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        rg, bpg, rb, n_splits, split, float(scale), torch.cuda.current_stream(dev).cuda_stream,
     )
     launches += 1
     if rc != 0:

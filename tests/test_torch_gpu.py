@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import blockwise as tb
 from repro_torch.core.attention import flash_attention
+from repro_torch.core.attention import gather_pages as tb_gather
 from repro_torch.kernels import fa2_fwd as k6
 from repro_torch.kernels import flashd_bwd as k5
 from repro_torch.kernels import flashd_decode as k2
@@ -29,6 +30,8 @@ from repro_torch.kernels import flashd_varlen as k4
 from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.models.transformer import apply_lm, init_lm
 from repro_torch.serve import Engine, ServeConfig
+from repro_torch.serve.engine import pack_plan
+from repro_torch.serve.scheduler import Segment, StepPlan
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
 from repro_torch.tree import tree_leaves
 
@@ -636,6 +639,182 @@ def test_varlen_kernel_matches_plain(cuda, case):
     assert torch.isfinite(oi).all()
     _close(oi, k4.flashd_varlen_plain(q, ki, vi, tbl_i, sid, qp, kvl, k_scale=ks, v_scale=vs,
                                       **kw))
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("page", [4, 8, 16, 32, 64])
+def test_paged_decode_kernel_pages_and_groups(cuda, page, group):
+    """K3 at every page size the engine can choose (a split spans several
+    small pages, or a page several splits) and every GQA group, in f32,
+    bf16 and over an int8 pool: one launch, against the plain version in
+    the reference's per-page order and in the kernel's split order."""
+    gen = torch.Generator(device=cuda).manual_seed(page * 10 + group)
+    hkv, d, s_max = 2, 128, 256
+    n_tbl = s_max // page
+    lengths = [0, 1, page - 1, page + 1, s_max // 2 + 3, s_max - 1, s_max]
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn(len(lengths), hkv * group, d, generator=gen, device=cuda)
+    n = k2.gpu_decode_splits(len(lengths), hkv, s_max,
+                             torch.cuda.get_device_properties(cuda).multi_processor_count)
+    kp, vp, tbl, _, _ = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d)
+    k2.paged_launches = 0
+    o = k2.flashd_decode_paged(q, kp, vp, tbl, cl)
+    assert k2.paged_launches == 1
+    assert torch.isfinite(o).all() and (o[0] == 0).all()
+    _close(o, k2.flashd_decode_paged_plain(q, kp, vp, tbl, cl))
+    _close(o, k2.flashd_decode_paged_plain(q, kp, vp, tbl, cl, n_splits=n))
+    kb, vb = kp.bfloat16(), vp.bfloat16()
+    _close(k2.flashd_decode_paged(q.bfloat16(), kb, vb, tbl, cl),
+           k2.flashd_decode_paged_plain(q.bfloat16(), kb, vb, tbl, cl), BF16_TOL)
+    ki, vi, tbl_i, ks, vs = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d, torch.int8)
+    for qx, tol in ((q, TOL), (q.bfloat16(), BF16_TOL)):
+        oi = k2.flashd_decode_paged(qx, ki, vi, tbl_i, cl, k_scale=ks, v_scale=vs)
+        assert torch.isfinite(oi).all()
+        _close(oi, k2.flashd_decode_paged_plain(qx, ki, vi, tbl_i, cl, k_scale=ks, v_scale=vs),
+               tol)
+
+
+def _plan(kind: str) -> StepPlan:
+    """A step plan of the mixed loop's kinds: decode rows only, prefill
+    chunks only, whole prompts with a K+1 = 5-row verify segment."""
+    one = lambda n: np.zeros(n, np.int32)
+    segs = {
+        "decode": [Segment(slot=i, tokens=one(1), start=st, emits=True)
+                   for i, st in enumerate((150, 3, 300, 0))],
+        "chunks": [Segment(slot=0, tokens=one(16), start=96, emits=False),
+                   Segment(slot=1, tokens=one(24), start=200, emits=False)],
+        "prompts+verify": [Segment(slot=0, tokens=one(37), start=0, emits=True),
+                           Segment(slot=1, tokens=one(5), start=400, emits=True),
+                           Segment(slot=2, tokens=one(100), start=0, emits=True)],
+    }[kind]
+    return StepPlan(segments=tuple(segs), n_tokens=sum(len(x.tokens) for x in segs))
+
+
+@pytest.mark.parametrize("mask", [{}, dict(window=50), dict(chunk=64)])
+@pytest.mark.parametrize("block_q", [8, 16])
+@pytest.mark.parametrize("kind", ["decode", "chunks", "prompts+verify"])
+def test_varlen_kernel_on_packer_packs(cuda, kind, block_q, mask):
+    """K4 on packs built by the engine's packer (each segment on a block_q
+    boundary, the pack a power of two, so all-padding blocks too), at
+    qwen3-0.6b's group (G 2): decode rows and short verify segments take
+    the CUDA-core body, chunks and prompts (≥ 16 rows a kv head) the tensor
+    cores. f32, bf16, int8; padding rows exactly 0."""
+    gen = torch.Generator(device=cuda).manual_seed(block_q + len(kind))
+    hkv, group, d, page, n_tbl = 2, 2, 128, 64, 8
+    _, sid_np, qpos_np, kvl_np, _ = pack_plan(_plan(kind), block_q, 4)
+    sid, qp, kvl = (torch.as_tensor(x, device=cuda) for x in (sid_np, qpos_np, kvl_np))
+    q = torch.randn(len(sid_np), hkv * group, d, generator=gen, device=cuda)
+    kp, vp, tbl, _, _ = _paged_pool(gen, cuda, kvl_np.tolist(), n_tbl, page, hkv, d)
+    kw = dict(block_q=block_q, **mask)
+    k4.launches = 0
+    o = k4.flashd_varlen(q, kp, vp, tbl, sid, qp, kvl, **kw)
+    assert k4.launches == 1
+    assert torch.isfinite(o).all() and (o[qp < 0] == 0).all()
+    _close(o, k4.flashd_varlen_plain(q, kp, vp, tbl, sid, qp, kvl, **kw))
+    n = k4.gpu_varlen_splits(len(sid_np) // block_q, block_q, group, hkv, n_tbl * page,
+                             torch.cuda.get_device_properties(cuda).multi_processor_count)
+    _close(o, k4.flashd_varlen_plain(q, kp, vp, tbl, sid, qp, kvl, n_splits=n, **kw))
+    ob = k4.flashd_varlen(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tbl, sid, qp, kvl, **kw)
+    assert (ob[qp < 0] == 0).all()
+    _close(ob, k4.flashd_varlen_plain(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tbl, sid, qp,
+                                      kvl, **kw), BF16_TOL)
+    ki, vi, tbl_i, ks, vs = _paged_pool(gen, cuda, kvl_np.tolist(), n_tbl, page, hkv, d,
+                                        torch.int8)
+    for qx, tol in ((q, TOL), (q.bfloat16(), BF16_TOL)):
+        oi = k4.flashd_varlen(qx, ki, vi, tbl_i, sid, qp, kvl, k_scale=ks, v_scale=vs, **kw)
+        assert torch.isfinite(oi).all() and (oi[qp < 0] == 0).all()
+        _close(oi, k4.flashd_varlen_plain(qx, ki, vi, tbl_i, sid, qp, kvl, k_scale=ks,
+                                          v_scale=vs, **kw), tol)
+
+
+def test_paged_kernels_are_bitwise_repeatable(cuda):
+    """K3 and K4 merge their splits in split order whichever CTA arrives
+    last: repeated calls are bitwise equal (f32, bf16, int8)."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    hkv, d, page, n_tbl = 8, 128, 16, 32
+    lengths = [512, 300, 17, 1]
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn(4, 16, d, generator=gen, device=cuda)
+    kp, vp, tbl, _, _ = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d)
+    ki, vi, tbl_i, ks, vs = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d, torch.int8)
+    _, sid_np, qpos_np, kvl_np, _ = pack_plan(_plan("prompts+verify"), 8, 4)
+    sid, qp, kvl = (torch.as_tensor(x, device=cuda) for x in (sid_np, qpos_np, kvl_np))
+    qv = torch.randn(len(sid_np), 16, d, generator=gen, device=cuda)
+    kp4, vp4, tbl4, _, _ = _paged_pool(gen, cuda, kvl_np.tolist(), n_tbl, page, hkv, d)
+    ki4, vi4, tbl4i, ks4, vs4 = _paged_pool(gen, cuda, kvl_np.tolist(), n_tbl, page, hkv, d,
+                                            torch.int8)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k2.gpu_decode_splits(4, hkv, n_tbl * page, n_sm) > 1  # the merge runs
+    assert k4.gpu_varlen_splits(len(sid_np) // 8, 8, 2, hkv, n_tbl * page, n_sm) > 1
+    calls = [lambda: k2.flashd_decode_paged(q, kp, vp, tbl, cl),
+             lambda: k2.flashd_decode_paged(q.bfloat16(), kp.bfloat16(), vp.bfloat16(), tbl, cl),
+             lambda: k2.flashd_decode_paged(q, ki, vi, tbl_i, cl, k_scale=ks, v_scale=vs),
+             lambda: k4.flashd_varlen(qv, kp4, vp4, tbl4, sid, qp, kvl, block_q=8),
+             lambda: k4.flashd_varlen(qv.bfloat16(), kp4.bfloat16(), vp4.bfloat16(), tbl4, sid,
+                                      qp, kvl, block_q=8),
+             lambda: k4.flashd_varlen(qv, ki4, vi4, tbl4i, sid, qp, kvl, block_q=8, k_scale=ks4,
+                                      v_scale=vs4)]
+    for fn in calls:
+        first = fn()
+        assert torch.isfinite(first).all()
+        for _ in range(3):
+            assert torch.equal(fn(), first)
+
+
+def test_paged_wrappers_refuse_unaligned_views(cuda):
+    """K3 and K4 copy 16-byte rows of q and the pools: a pool whose row
+    stride is 129 floats, or a q whose base is one bf16 off, raises and
+    launches nothing."""
+    q = torch.randn(2, 4, 128, device=cuda)
+    ok = torch.randn(5, 8, 2, 128, device=cuda)
+    bad = torch.randn(5, 8, 2, 129, device=cuda)[..., :128]
+    tbl = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32, device=cuda)
+    cl = torch.tensor([9, 16], dtype=torch.int32, device=cuda)
+    idx = torch.tensor([0] * 4 + [1] * 4, dtype=torch.int32, device=cuda)
+    pos = torch.tensor([5, 6, 7, 8, 12, 13, 14, 15], dtype=torch.int32, device=cuda)
+    qv = torch.randn(8, 4, 128, device=cuda)
+    off = torch.randn(8 * 4 * 128 + 1, device=cuda).bfloat16()[1:].reshape(8, 4, 128)
+    before = (k2.paged_launches, k4.launches)
+    for kp, vp in ((bad, ok), (ok, bad)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            k2.flashd_decode_paged(q, kp, vp, tbl, cl)
+        with pytest.raises(ValueError, match="16 bytes"):
+            k4.flashd_varlen(qv, kp, vp, tbl, idx, pos, cl, block_q=4)
+    with pytest.raises(ValueError, match="16 bytes"):
+        k2.flashd_decode_paged(off[:2], ok.bfloat16(), ok.bfloat16(), tbl, cl)
+    with pytest.raises(ValueError, match="16 bytes"):
+        k4.flashd_varlen(off, ok.bfloat16(), ok.bfloat16(), tbl, idx, pos, cl, block_q=4)
+    assert (k2.paged_launches, k4.launches) == before
+
+
+def test_varlen_tc_path_holds_f32_at_large_scores(cuda):
+    """Two whole prompts through K4's tensor-core body with q and k scaled
+    ×4 (scores up to ±60), f32, split over the keys: held against float64
+    softmax attention, within 5e-5 and no farther than the plain version
+    (the rule of test_tc_fwd_kernels_hold_f32_at_large_scores)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    hkv, group, d, page, n_tbl, n = 2, 2, 128, 64, 8, 512
+    plan = StepPlan(segments=tuple(Segment(slot=i, tokens=np.zeros(n, np.int32), start=0,
+                                           emits=True) for i in range(2)), n_tokens=2 * n)
+    _, sid_np, qpos_np, kvl_np, _ = pack_plan(plan, 8, 2)
+    sid, qp, kvl = (torch.as_tensor(x, device=cuda) for x in (sid_np, qpos_np, kvl_np))
+    kp, vp, tbl, _, _ = _paged_pool(gen, cuda, kvl_np.tolist(), n_tbl, page, hkv, d)
+    kp = kp * 4
+    q = torch.randn(2 * n, hkv * group, d, generator=gen, device=cuda) * 4
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert k4.gpu_varlen_splits(2 * n // 8, 8, group, hkv, n_tbl * page, n_sm) > 1  # split keys
+    o = k4.flashd_varlen(q, kp, vp, tbl, sid, qp, kvl, block_q=8)
+    o_p = k4.flashd_varlen_plain(q, kp, vp, tbl, sid, qp, kvl, block_q=8)
+    # the truth: causal softmax attention per prompt in float64
+    kg = tb_gather(kp, tbl).double()  # [2, S, Hkv, d]
+    vg = tb_gather(vp, tbl).double()
+    qs = q.double().reshape(2, n, hkv, group, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qs, kg[:, :n]) / d ** 0.5
+    causal = torch.ones(n, n, dtype=torch.bool, device=cuda).tril()
+    p = torch.softmax(s.masked_fill(~causal, float("-inf")), -1)
+    o_t = torch.einsum("bhgqk,bkhd->bqhgd", p, vg[:, :n]).reshape(2 * n, hkv * group, d)
+    err, plain_err = float((o - o_t).abs().max()), float((o_p - o_t).abs().max())
+    assert err <= min(TOL, plain_err), (err, plain_err)
 
 
 def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -3,7 +3,9 @@
 On the CPU: `flashd_decode_paged_plain` (K3's plain version) and the plain
 `decode_attention_paged` / `gather_pages` against the reference's jnp
 `decode_attention_paged` (and, on small cases, the Pallas kernel
-`flashd_decode_paged_pallas` in interpret mode); the paged cache layout,
+`flashd_decode_paged_pallas` in interpret mode — also in the kernel's own
+split order, runs of positions that span pages or split them); K3's split
+count at the engine's shapes; the paged cache layout,
 the paged decode step and `prefill_lm` on a paged cache against the
 reference's; the copied page allocator. The kernel itself is held against
 the plain version on the card (tests/test_torch_gpu.py).
@@ -33,7 +35,11 @@ from repro.runtime.kvcache import PagedKVAllocator as JAllocator
 from repro_torch import bridge
 from repro_torch.core import attention as tatt
 from repro_torch.kernels import ops
-from repro_torch.kernels.flashd_decode import flashd_decode_paged, flashd_decode_paged_plain
+from repro_torch.kernels.flashd_decode import (
+    flashd_decode_paged,
+    flashd_decode_paged_plain,
+    gpu_decode_splits,
+)
 from repro_torch.models import transformer as ttf
 from repro_torch.runtime import PagedKVAllocator, PageError
 
@@ -145,6 +151,55 @@ def test_paged_decode_plain_matches_pallas_interpret(int8):
                                     k_scale=_t(scn[0]), v_scale=_t(scn[1]))
     assert np.isfinite(want).all()
     _close(got, want)
+
+
+SPLIT_CASES = [
+    # (page, n_tbl, n_splits, int8): the kernel's split order — runs of
+    # ⌈N·page / n_splits⌉ positions — against the reference's per-page carry
+    (4, 16, 4, False),  # a run of 16 spans 4 pages
+    (4, 16, 5, True),  # runs of 13 straddle page edges; int8
+    (16, 4, 8, False),  # a page of 16 spans 2 runs of 8
+    (16, 4, 3, True),  # runs of 22 straddle page edges; int8
+    (64, 2, 8, False),  # a page of 64 spans 4 runs of 16
+    (64, 2, 3, True),  # runs of 43; int8
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_paged_decode_split_order_matches_pallas_interpret(case):
+    """K3's plain version in the kernel's split order against the Pallas
+    kernel in interpret mode: the blend is associative to a few ulps, so
+    the orders agree within 5e-5. Page 0 is NaN (or has NaN scales) on both
+    sides: neither follows a dead table slot."""
+    page, n_tbl, n_splits, int8 = case
+    rng = np.random.default_rng(page * 7 + n_splits + 50 * int8)
+    hkv, group, d = 2, 2, 16
+    full = n_tbl * page
+    lengths = [1, page - 1, page + 1, full // 2 + 3, full - 1, full]
+    _, (kn, vn), tbl, _, scn = _pool(rng, lengths, n_tbl, page, hkv, d, int8=int8)
+    scn = scn or (None, None)
+    q = rng.standard_normal((len(lengths), hkv * group, d)).astype(np.float32)
+    cl = np.array(lengths, np.int32)
+    want = np.asarray(flashd_decode_paged_pallas(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(tbl), jnp.asarray(cl),
+        k_scale=_j(scn[0]), v_scale=_j(scn[1]), interpret=True))
+    got = flashd_decode_paged_plain(_t(q), _t(kn), _t(vn), _t(tbl), _t(cl),
+                                    k_scale=_t(scn[0]), v_scale=_t(scn[1]), n_splits=n_splits)
+    assert np.isfinite(want).all() and torch.isfinite(got).all()
+    _close(got, want)
+
+
+def test_gpu_decode_splits_by_hand():
+    """K2's and K3's split count from shapes alone (S_max = N·page for K3,
+    so pages of 64 and 16 give one count): ⌈4·SMs / (B·Hkv)⌉ splits wanted,
+    each a multiple of 16 positions in [16, 64]."""
+    sms = 132
+    assert gpu_decode_splits(4, 8, 512, sms) == 16  # the engine's decode: splits of 32, 512 CTAs
+    assert gpu_decode_splits(8, 8, 512, sms) == 8  # chip smoke phase 7's B 8: splits of 64
+    assert gpu_decode_splits(1, 8, 4096, sms) == 64  # one long row: splits of 64
+    assert gpu_decode_splits(64, 8, 512, sms) == 8  # a wide batch: the ceiling of 64 positions
+    assert gpu_decode_splits(1, 1, 64, sms) == 4  # one row, one head: the floor of 16
+    assert gpu_decode_splits(4, 8, 1, sms) == 1
 
 
 def test_gather_pages_matches_reference():

@@ -1,9 +1,12 @@
 """Port parity for the packed mixed step (A6, K4) against the JAX reference.
 
 On the CPU: `flashd_varlen_plain` (K4's plain version) and the plain
-`varlen_attention` against the reference's jnp `varlen_attention` (and, on
-one small case, the Pallas kernel `flashd_varlen_pallas` in interpret
-mode); `forward_packed` logits (1-D and 2-D `last_rows`) against the
+`varlen_attention` against the reference's jnp `varlen_attention` (and
+the Pallas kernel `flashd_varlen_pallas` in interpret mode, also with the
+plain version in the kernel's own split order at pages of 4, 16 and 64);
+K4's split count at the engine's shapes; an emulation of K4's tensor-core
+operand rounding (3xTF32, bf16 P, fresh partials) over its runs and masks
+against the reference; `forward_packed` logits (1-D and 2-D `last_rows`) against the
 reference's on the same weights; the mixed loop's pack layout against the
 reference packer's. The kernel itself is held against the plain version
 on the card (tests/test_torch_gpu.py).
@@ -32,11 +35,13 @@ from repro.serve import ServeConfig as JServeConfig
 from repro_torch import bridge
 from repro_torch.core import attention as tatt
 from repro_torch.kernels import ops
-from repro_torch.kernels.flashd_varlen import flashd_varlen, flashd_varlen_plain
+from repro_torch.core import blockwise as tb
+from repro_torch.kernels.flashd_varlen import flashd_varlen, flashd_varlen_plain, gpu_varlen_splits
 from repro_torch.models import transformer as ttf
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve import engine as tengine
 from repro_torch.serve.scheduler import Segment, StepPlan
+from test_torch_tc_numerics import _matmul
 
 TOL = 5e-5
 LOGIT_TOL = 1e-4
@@ -152,6 +157,171 @@ def test_varlen_plain_matches_pallas_interpret():
                               _t(kv_len), block_q=block_q)
     assert np.isfinite(want).all()
     _close(got, want)
+
+
+VARLEN_SPLIT_CASES = [
+    # (page, n_tbl, block_q, n_splits, int8): the kernel's split order
+    (4, 12, 8, 3, False),  # runs of 16 span 4 pages
+    (4, 12, 16, 7, True),  # runs of 7 straddle page edges; int8
+    (16, 3, 8, 6, False),  # a page spans 2 runs of 8
+    (16, 3, 16, 5, True),  # runs of 10; int8
+    (64, 1, 8, 4, False),  # a page spans 4 runs of 16
+    (64, 1, 16, 3, True),  # runs of 22; int8
+]
+
+
+@pytest.mark.parametrize("case", VARLEN_SPLIT_CASES)
+def test_varlen_split_order_matches_pallas_interpret(case):
+    """K4's plain version in the kernel's split order (runs of ⌈N·page /
+    n_splits⌉ positions blended in order) against the Pallas kernel's
+    per-page carry in interpret mode, within 5e-5; page 0 NaN (NaN scales
+    for int8) on both sides; padding rows exactly 0."""
+    page, n_tbl, block_q, n_splits, int8 = case
+    rng = np.random.default_rng(page * 3 + n_splits + 40 * int8)
+    group, hkv, d = 2, 2, 16
+    full = n_tbl * page
+    lengths = [min(21, full), full, full // 2 + 1, 5]
+    seq_ids, q_pos = _pack(lengths, [min(21, full), 3, 1, 5], block_q)
+    _, (kn, vn, ksn, vsn), tbl = _pool(rng, lengths, n_tbl, page, hkv, d, int8)
+    kv_len = np.array(lengths, np.int32)
+    q = rng.standard_normal((len(seq_ids), hkv * group, d)).astype(np.float32)
+    want = np.asarray(flashd_varlen_pallas(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(tbl), jnp.asarray(seq_ids),
+        jnp.asarray(q_pos), jnp.asarray(kv_len), block_q=block_q, k_scale=_j(ksn),
+        v_scale=_j(vsn), interpret=True))
+    got = flashd_varlen_plain(_t(q), _t(kn), _t(vn), _t(tbl), _t(seq_ids), _t(q_pos),
+                              _t(kv_len), block_q=block_q, k_scale=_t(ksn), v_scale=_t(vsn),
+                              n_splits=n_splits)
+    assert np.isfinite(want).all() and torch.isfinite(got).all()
+    _close(got, want)
+    assert (got[_t(q_pos) < 0] == 0).all()
+
+
+def test_gpu_varlen_splits_by_hand():
+    """K4's split count from shapes alone: ⌈4·SMs / CTAs of one split⌉
+    splits wanted (CTAs = row groups of up to 64 rows × Hkv, where a group
+    joins up to 64 / (block_q·G) blocks), each a multiple of 64 positions,
+    at most 64 splits."""
+    sms = 132
+    # chip smoke's mixed-step pack: T 64, block_q 8, G 2, Hkv 8, S 512 → runs of 64
+    assert gpu_varlen_splits(8, 8, 2, 8, 512, sms) == 8
+    # four whole prompts of 512 at block_q 8: 64 groups of 4 blocks × 8 heads → runs of 256
+    assert gpu_varlen_splits(256, 8, 2, 8, 512, sms) == 2
+    # a lone slot's chunk at block_q 128, G 2: 4 row groups → runs of 64
+    assert gpu_varlen_splits(1, 128, 2, 8, 512, sms) == 8
+    # a long context: the cap of 64 splits (runs of 512)
+    assert gpu_varlen_splits(1, 8, 2, 8, 32768, sms) == 64
+
+
+def _k4_tc_emulated(q_rows, q_pos, k, v, kv_len, *, s_max, n_splits, window, chunk, mode):
+    """K4's tensor-core body for one q block's live rows of one kv head:
+    runs of ⌈s_max / n_splits⌉ positions, each read from the first position
+    any row can see ([i0, i1) as the kernel clips it) in 64-key tiles with
+    K1's carry and the tensor cores' operand rounding, then the runs
+    blended in split order. q_rows [R, d], q_pos [R], k / v [S, d] f32
+    (bf16-valued in bf16 mode)."""
+    neg, dead = tb.NEG_INF, tb.NEG_INF / 2
+    scale = 1.0 / q_rows.shape[-1] ** 0.5
+    split = -(-s_max // n_splits)
+    q_min, q_max = int(q_pos.min()), int(q_pos.max())
+    out = (torch.zeros(q_rows.shape[0], v.shape[-1]), torch.full((q_rows.shape[0],), neg))
+    for lo in range(0, s_max, split):
+        i1 = min(lo + split, s_max, kv_len, q_max + 1)
+        i0 = max(lo, q_min - window + 1) if window > 0 else lo
+        if chunk > 0:
+            i0 = max(i0, q_min // chunk * chunk)
+        acc = torch.zeros_like(out[0])
+        lam = torch.full_like(out[1], neg)
+        for k0 in range(i0, i1, 64):
+            pos = torch.arange(k0, min(k0 + 64, i1))
+            s = _matmul(q_rows, k[pos].T, mode) * scale  # each k8 step a fresh f32 partial
+            keep = pos[None, :] <= q_pos[:, None]
+            if window > 0:
+                keep &= q_pos[:, None] - pos[None, :] < window
+            if chunk > 0:
+                keep &= (q_pos[:, None] // chunk) == (pos[None, :] // chunk)
+            s = torch.where(keep, s, torch.full_like(s, neg))
+            m_safe = torch.clamp(s.amax(-1), min=dead)
+            p = torch.exp(s - m_safe[..., None])
+            l = p.sum(-1)
+            lam_b = torch.where(l > 0, m_safe + torch.log(torch.clamp(l, min=1.17549435e-38)),
+                                torch.full_like(l, neg))
+            delta = lam_b - lam
+            tile_dead, first = lam_b <= dead, lam <= dead
+            w = torch.where(tile_dead, 0.0, torch.where(first, 1.0, torch.sigmoid(delta)))
+            ln = torch.where(tile_dead, lam, torch.where(
+                first, lam_b, lam_b - torch.nn.functional.logsigmoid(delta)))
+            pc = p * torch.where(tile_dead, 0.0, torch.exp(m_safe - ln))[..., None]
+            if mode == "bf16":
+                pc = pc.bfloat16().float()  # P rounded to bf16 for the mma
+            acc = acc * (1.0 - w)[..., None] + _matmul(pc, v[pos], mode)  # a fresh P·V partial
+            lam = ln
+        out = tb.merge_pair(out, (acc, lam))
+    return out[0]
+
+
+TC_CASES = [
+    # (dtype, window, chunk, int8, magnitude)
+    ("f32", 0, 0, False, 1.0),
+    ("f32", 0, 0, False, 4.0),  # scores of ±60
+    ("f32", 7, 0, False, 1.0),
+    ("f32", 0, 10, True, 1.0),
+    ("bf16", 0, 0, False, 1.0),
+    ("bf16", 9, 0, True, 1.0),
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_varlen_tc_operand_rounding_holds_the_bounds(case):
+    """Every q block with ≥ 16 live rows per kv head (a whole prompt, a
+    prefill chunk) through the emulated tensor-core body — 3xTF32 in f32,
+    bf16 operands with P rounded to bf16 — with K4's masks and split order,
+    against the reference's jnp varlen_attention: 5e-5 in f32, 2e-2 in bf16
+    (one bf16 rounding of O)."""
+    dtype, window, chunk, int8, magnitude = case
+    rng = np.random.default_rng(TC_CASES.index(case))
+    group, hkv, d, page, n_tbl, block_q, n_splits = 2, 2, 64, 8, 10, 8, 3
+    lengths = [40, 4 * page + 3, 22, 17]
+    seg_rows = [40, 16, 1, 4]  # whole prompt, chunk (tensor cores); decode, verify (CUDA cores)
+    (k0, v0, ks0, vs0), _, tbl = _pool(rng, lengths, n_tbl, page, hkv, d, int8)
+    if not int8:
+        k0 = k0 * magnitude
+    seq_ids, q_pos = _pack(lengths, seg_rows, block_q)
+    kv_len = np.array(lengths, np.int32)
+    q = (rng.standard_normal((len(seq_ids), hkv * group, d)) * magnitude).astype(np.float32)
+    if dtype == "bf16":
+        q, k0, v0 = (torch.from_numpy(x).bfloat16().float().numpy() if x.dtype == np.float32
+                     else x for x in (q, k0, v0))
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    kj, vj = (jnp.asarray(x) if int8 else jnp.asarray(x, jdt) for x in (k0, v0))
+    want = np.asarray(jatt.varlen_attention(
+        jnp.asarray(q, jdt), kj, vj, jnp.asarray(tbl), jnp.asarray(seq_ids), jnp.asarray(q_pos),
+        jnp.asarray(kv_len), window=window, chunk=chunk, k_scale=_j(ks0), v_scale=_j(vs0)),
+        np.float32)
+    kc = tatt.gather_pages(_t(k0), _t(tbl), scales=_t(ks0)).float()  # [B, S, Hkv, d], dequantized
+    vc = tatt.gather_pages(_t(v0), _t(tbl), scales=_t(vs0)).float()
+    if dtype == "bf16":  # the tensor cores take the dequantized tiles as bf16
+        kc, vc = kc.bfloat16().float(), vc.bfloat16().float()
+    mode = "3xtf32" if dtype == "f32" else "bf16"
+    tol = 5e-5 if dtype == "f32" else 2e-2
+    n_tc = 0
+    for ib in range(len(seq_ids) // block_q):
+        rows = np.arange(ib * block_q, (ib + 1) * block_q)
+        seq, live = seq_ids[rows[0]], rows[q_pos[rows] >= 0]
+        if seq < 0 or len(live) * group < 16:
+            continue  # the CUDA-core body: f32 FMA, the plain version's arithmetic
+        n_tc += 1
+        for hk in range(hkv):
+            heads = np.arange(hk * group, (hk + 1) * group)
+            q_rows = torch.from_numpy(q[live][:, heads].reshape(-1, d))  # rows (t, g)
+            pos = torch.from_numpy(np.repeat(q_pos[live], group)).long()
+            o = _k4_tc_emulated(q_rows, pos, kc[seq, :, hk], vc[seq, :, hk], int(kv_len[seq]),
+                                s_max=n_tbl * page, n_splits=n_splits, window=window,
+                                chunk=chunk, mode=mode)
+            if dtype == "bf16":
+                o = o.bfloat16().float()
+            _close(o.numpy(), want[live][:, heads].reshape(-1, d), tol)
+    assert n_tc == 7  # 5 prompt blocks + 2 chunk blocks
 
 
 def test_varlen_kernel_wrapper_refuses_cpu_tensors():

@@ -27,7 +27,11 @@ non-zero:
   5. full-width qwen3-0.6b in f32 on seeded random weights: apply_lm
      (last_only) and the engine (`generate`, `serve`), kernels against
      the plain path — greedy tokens identical, logits within bound, both
-     kernels launched on the main path;
+     kernels launched on the main path; the engine's steps replayed as
+     CUDA graphs (the default) against the same engine run eagerly
+     (`graphs=False`): tokens, K2–K4 launch counts and host syncs equal,
+     tok/s and TTFT side by side, and a decode step's breakdown (host ms,
+     device busy, idle share) eager and captured;
   6. the same engine run in bf16, the model's own dtype;
   7. K3 `flashd_decode_paged` against `flashd_decode_paged_plain` at
      qwen3-0.6b widths (B 8, shuffled pages, NaN on the garbage page 0,
@@ -42,9 +46,14 @@ non-zero:
      block_q 8 and 16, bf16 and int8; padding rows exactly 0; timed on the
      mixed-step pack and on the four-prompt pack (the tensor-core body);
   9. the paged and the mixed serving loops at full width, f32, on phase
-     5's weights and requests: kernel path vs plain path, tokens identical
-     to each other and to phase 5's contiguous loop, K3 / K4 launched, the
-     page allocator consistent; then one bf16 mixed serve;
+     5's weights and requests, the prefix cache on: kernel path captured
+     and eager, and the plain path, tokens identical to each other and to
+     phase 5's contiguous loop, K3 / K4 launched (counts and host syncs
+     equal captured and eager), the page allocator consistent; paged
+     decode step and packed step breakdowns, eager and captured; a
+     shared-prefix workload (8 requests, a 256-token system prompt) with
+     the cache on and off, captured: tokens identical, hits counted, and
+     one request's TTFT cold and warm; then one bf16 mixed serve;
  10. K5 `flashd_bwd` against `flashd_bwd_plain` at qwen3-0.6b training
      widths (B 2, Hq 16, Hkv 8, d 128, S 1024): four mask kinds, a ragged
      S of 1000, dead rows; f32 and bf16; deterministic; timed beside the
@@ -250,9 +259,11 @@ def _paged_pool(gen, dev, lengths, n_tbl, page, hkv, d, dtype):
 def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=()) -> str:
     """`step()` of the engine's (or the trainer's) shape: host wall time per
     step, device-busy time per step (torch.profiler kernel time), the
-    device's idle share, and the kernels that take the device time (with
-    the share and ms per step of each kernel whose name contains a string
-    of `watch`)."""
+    device's idle share, the span from the first step's start to the last
+    step's end on the device (CUDA events), and the kernels that take the
+    device time (with the share and ms per step of each kernel whose name
+    contains a string of `watch`). A trace with no kernel gives no busy
+    time and no idle share."""
     import contextlib
 
     import torch
@@ -262,11 +273,15 @@ def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=())
     with contextlib.nullcontext() if train else torch.inference_mode():
         step()
         torch.cuda.synchronize()
+        first, last = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
+        first.record()
         for _ in range(steps):
             step()
+        last.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
+        span_ms = first.elapsed_time(last) / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 step()
@@ -276,7 +291,9 @@ def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=())
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     total_us = sum(us for _, us in rows)
     if total_us == 0:
-        return f"{label}: host {wall_ms:.2f} ms; device time not measured (no kernels traced)"
+        return (f"{label}: host {wall_ms:.2f} ms/step, device span {span_ms:.3f} ms/step (CUDA "
+                f"events); device busy and idle share not measured: torch.profiler traced no "
+                f"kernel")
     busy_ms = total_us / 1e3 / steps
     rows.sort(key=lambda r: -r[1])
     top = ", ".join(f"{name[:48]} {100 * us / total_us:.1f}%" for name, us in rows[:5])
@@ -293,8 +310,8 @@ def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=())
         f"; {w} {100 * us / total_us:.1f}% ({us / 1e3 / steps:.3f} ms/step)"
         for w, us in ((w, sum(t for name, t in rows if w in name)) for w in watch))
     return (f"{label}: host {wall_ms:.2f} ms/step, device busy {busy_ms:.3f} ms/step, device "
-            f"idle {100 * (1 - busy_ms / wall_ms):.1f}%; device time by class: {by_class}; "
-            f"by kernel: {top}{watched}")
+            f"idle {100 * (1 - busy_ms / wall_ms):.1f}% (device span {span_ms:.3f} ms/step, CUDA "
+            f"events); device time by class: {by_class}; by kernel: {top}{watched}")
 
 
 def main() -> int:
@@ -341,6 +358,7 @@ def main() -> int:
     )
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.serve.engine import pack_plan
+    from repro_torch.serve.graphs import StepGraphs, launch_counts
     from repro_torch.serve.scheduler import Segment, StepPlan
 
     dev = torch.device("cuda")
@@ -528,15 +546,20 @@ def main() -> int:
             for n in rng.integers(17, 201, 8)]
     sc = ServeConfig(max_batch=4, max_len=512)
 
-    def run(model_cfg):
+    def run(model_cfg, graphs=None, apply=True):
+        """apply_lm (twice), then one engine's generate and serve; the
+        engine's K2–K4 launches, host syncs and captures."""
         out = {}
-        with torch.inference_mode():
-            for _ in range(2):  # the first call pays one-time library set-up
-                t = time.perf_counter()
-                out["logits"], _ = apply_lm(params, {"tokens": toks}, model_cfg, last_only=True)
-                torch.cuda.synchronize()
-                out["apply_s"] = time.perf_counter() - t
-        eng = Engine(params, model_cfg, sc, device=dev)
+        if apply:
+            with torch.inference_mode():
+                for _ in range(2):  # the first call pays one-time library set-up
+                    t = time.perf_counter()
+                    out["logits"], _ = apply_lm(params, {"tokens": toks}, model_cfg,
+                                                last_only=True)
+                    torch.cuda.synchronize()
+                    out["apply_s"] = time.perf_counter() - t
+        eng = Engine(params, model_cfg, sc, device=dev, graphs=graphs)
+        before = launch_counts()
         t = time.perf_counter()
         out["gen"] = eng.generate(gen_prompts, 32)
         out["gen_s"] = time.perf_counter() - t
@@ -544,7 +567,10 @@ def main() -> int:
         out["serve"] = eng.serve(reqs, 32)
         out["serve_s"] = time.perf_counter() - t
         out["ttft"] = float(np.mean(list(eng.ttft.values())))
+        out["launched"] = tuple(a - b for a, b in zip(launch_counts(), before))
         out["syncs"] = eng.host_syncs
+        out["captures"] = eng._steps.captures
+        out["capture_s"] = eng._steps.capture_s
         return out
 
     def counts():
@@ -555,34 +581,49 @@ def main() -> int:
         k1.launches = k2.launches = k2.paged_launches = k4.launches = 0
         k5.launches = k6.launches = 0
 
-    reset_counts()  # the contiguous path's run starts here
+    def same_tokens(label, a, b_):
+        assert np.array_equal(a["gen"], b_["gen"]), f"{label}: generate tokens differ"
+        for x, y in zip(a["serve"], b_["serve"]):
+            assert np.array_equal(x, y), f"{label}: serve tokens differ"
+
+    def rates(r):
+        n_gen, n_srv = r["gen"].size, sum(len(o) for o in r["serve"])
+        return (f"generate {n_gen / r['gen_s']:.1f} tok/s, serve {n_srv / r['serve_s']:.1f} "
+                f"tok/s, mean TTFT {r['ttft'] * 1e3:.1f} ms")
+
+    reset_counts()  # the contiguous path's run starts here (captured steps, the default)
     kern = run(cfg)
     launches = {"flashd_fwd": k1.launches, "flashd_decode": k2.launches}
     assert launches["flashd_fwd"] > 0 and launches["flashd_decode"] > 0, launches
+    eager = run(cfg, graphs=False, apply=False)
+    same_tokens("captured vs eager", kern, eager)
+    assert kern["launched"] == eager["launched"], (kern["launched"], eager["launched"])
+    assert kern["syncs"] == eager["syncs"] and eager["captures"] == 0 < kern["captures"]
     seen = counts()
     plain = run(plain_cfg)
     assert counts() == seen, "plain path launched a kernel"
     v = cfg.vocab_size
     logit_err = _err(kern["logits"][..., :v], plain["logits"][..., :v])
     assert logit_err <= LOGIT_TOL, ("logits", logit_err)
-    assert np.array_equal(kern["gen"], plain["gen"]), "generate tokens differ"
-    for a, b_ in zip(kern["serve"], plain["serve"]):
-        assert np.array_equal(a, b_), "serve tokens differ"
+    same_tokens("kernel vs plain", kern, plain)
     n_gen, n_serve = kern["gen"].size, sum(len(o) for o in kern["serve"])
     cache = init_decode_cache(4, 512, cfg, device=dev)
     tok4 = torch.zeros(4, dtype=torch.long, device=dev)
     at = torch.full((4,), 300, dtype=torch.long, device=dev)
-    breakdown = _breakdown("decode step B4 S_max512 pos300",
-                           lambda: decode_step_lm(params, cache, tok4, at, cfg))
-    del cache
+    decode = lambda: decode_step_lm(params, cache, tok4, at, cfg)
+    breakdown = _breakdown("eager decode step B4 S_max512 pos300", decode)
+    steps, captured = StepGraphs(dev, graphs=True), {}
+    breakdown_g = _breakdown("captured", lambda: steps.run(captured, "decode", decode))
+    del cache, steps, captured
     _line(5, f"qwen3-0.6b f32 full width ({cfg.n_layers} layers): apply_lm S 2048 max|Δlogit| "
              f"{logit_err:.2e} (bound {LOGIT_TOL}), kernel {kern['apply_s']:.3f} s vs plain "
-             f"{plain['apply_s']:.3f} s; generate 4x128+32 tokens identical, "
-             f"{n_gen / kern['gen_s']:.1f} tok/s (plain {n_gen / plain['gen_s']:.1f}); serve 8 "
-             f"requests (prompts {min(map(len, reqs))}-{max(map(len, reqs))}) tokens identical, "
-             f"{n_serve / kern['serve_s']:.1f} tok/s (plain {n_serve / plain['serve_s']:.1f}), "
-             f"mean TTFT {kern['ttft'] * 1e3:.1f} ms (plain {plain['ttft'] * 1e3:.1f}); "
-             f"launches {launches}; host syncs {kern['syncs']}; {breakdown} {ph}")
+             f"{plain['apply_s']:.3f} s; generate 4x128+32 and serve 8 requests (prompts "
+             f"{min(map(len, reqs))}-{max(map(len, reqs))}, 32 new) tokens identical captured = "
+             f"eager = plain; captured ({kern['captures']} graphs, {kern['capture_s']:.2f} s of "
+             f"warm-up runs and captures included): {rates(kern)}; eager: "
+             f"{rates(eager)}; plain (captured): {rates(plain)}; K2–K4 launches captured "
+             f"{kern['launched']} = eager {eager['launched']}; host syncs {kern['syncs']} = "
+             f"{eager['syncs']}; launches {launches}; {breakdown}; {breakdown_g} {ph}")
 
     # ---- 6. the same engine in bf16 ----
     ph = _Phase()
@@ -595,7 +636,8 @@ def main() -> int:
     ttft_b = float(np.mean(list(eng.ttft.values())))
     same = sum(int(np.array_equal(a, b_)) for a, b_ in zip(out_b, kern["serve"]))
     assert k2.launches > 0
-    _line(6, f"qwen3-0.6b bf16 serve 8 requests: {sum(map(len, out_b)) / serve_b:.1f} tok/s, "
+    _line(6, f"qwen3-0.6b bf16 serve 8 requests, captured steps: "
+             f"{sum(map(len, out_b)) / serve_b:.1f} tok/s, "
              f"mean TTFT {ttft_b * 1e3:.1f} ms, K2 launches {k2.launches}; "
              f"{same}/8 streams equal to the f32 run {ph}")
 
@@ -834,48 +876,63 @@ def main() -> int:
 
     # ---- 9. the paged and mixed loops at full width: kernels vs plain ----
     ph = _Phase()
-    pool_runs, pool_report = {}, []
+    pool_report = []
     pool_launches = {"flashd_decode_paged": 0, "flashd_varlen": 0}
+
+    def pool_serve(eng, requests):
+        """One serve() of a paged or mixed engine: tokens, seconds, TTFT, and
+        what the call added to the engine's counters."""
+        before, st0, graphs0 = launch_counts(), eng.stats(), eng._steps.captures
+        t = time.perf_counter()
+        toks_out = eng.serve(requests, 32)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        eng._alloc.check()
+        st = eng.stats()
+        assert st["pages_in_use"] == st["cached_pages"], "pages leaked"  # the tree's alone
+        return dict(toks=toks_out, s=dt, ttft=float(np.mean(list(eng.ttft.values()))),
+                    syncs=eng.host_syncs, stats=st, captures=eng._steps.captures,
+                    capture_s=eng._steps.capture_s, new_graphs=eng._steps.captures - graphs0,
+                    hits=st["prefix_hits"] - st0["prefix_hits"],
+                    hit_tokens=st["hit_tokens"] - st0["hit_tokens"],
+                    launched=tuple(a - b for a, b in zip(launch_counts(), before)),
+                    layout=eng._page_layout)
+
     for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
-        psc = ServeConfig(max_batch=4, max_len=512, prefix_cache=False, **kw)
-        out = {}
-        for path, model_cfg in (("kernel", cfg), ("plain", plain_cfg)):
-            if path == "kernel":
-                reset_counts()  # this path's main-path run starts here
-            else:
-                seen = counts()
-            eng = Engine(params, model_cfg, psc, device=dev)
-            t = time.perf_counter()
-            toks_out = eng.serve(reqs, 32)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t
-            eng._alloc.check()
-            assert eng._alloc.pages_in_use == 0, "pages leaked"
-            st = eng.stats()
-            out[path] = dict(toks=toks_out, s=dt, ttft=float(np.mean(list(eng.ttft.values()))),
-                             syncs=eng.host_syncs, stats=st)
-            if path == "kernel":
-                got = dict(zip(pool_launches, counts()[2:4]))
-                assert got["flashd_decode_paged"] > 0, (mode, got)
-                assert (got["flashd_varlen"] > 0) == (mode == "mixed"), (mode, got)
-                for name in pool_launches:
-                    pool_launches[name] += got[name]
-            else:
-                assert counts() == seen, f"{mode}: the plain path launched a kernel"
-        for a, b_, c in zip(out["kernel"]["toks"], out["plain"]["toks"], kern["serve"]):
-            assert np.array_equal(a, b_), f"{mode}: kernel and plain tokens differ"
-            assert np.array_equal(a, c), f"{mode}: tokens differ from the contiguous loop"
-        pool_runs[mode] = out
-        k, p_ = out["kernel"], out["plain"]
+        psc = ServeConfig(max_batch=4, max_len=512, **kw)
+        reset_counts()  # this path's main-path run (captured steps) starts here
+        out = {"captured": pool_serve(Engine(params, cfg, psc, device=dev), reqs)}
+        got = dict(zip(pool_launches, counts()[2:4]))
+        assert got["flashd_decode_paged"] > 0, (mode, got)
+        assert (got["flashd_varlen"] > 0) == (mode == "mixed"), (mode, got)
+        for name in pool_launches:
+            pool_launches[name] += got[name]
+        out["eager"] = pool_serve(Engine(params, cfg, psc, device=dev, graphs=False), reqs)
+        seen = counts()
+        out["plain"] = pool_serve(Engine(params, plain_cfg, psc, device=dev), reqs)
+        assert counts() == seen, f"{mode}: the plain path launched a kernel"
+        k, e = out["captured"], out["eager"]
+        assert k["launched"] == e["launched"] and k["syncs"] == e["syncs"], (mode, k, e)
+        for a, b_, c, d_ in zip(k["toks"], e["toks"], out["plain"]["toks"], kern["serve"]):
+            assert np.array_equal(a, b_), f"{mode}: captured and eager tokens differ"
+            assert np.array_equal(a, c), f"{mode}: kernel and plain tokens differ"
+            assert np.array_equal(a, d_), f"{mode}: tokens differ from the contiguous loop"
         st = k["stats"]
         pool_report.append(
-            f"{mode}: tokens identical (kernel = plain = contiguous), {n_serve / k['s']:.1f} tok/s "
-            f"(plain {n_serve / p_['s']:.1f}), mean TTFT {k['ttft'] * 1e3:.1f} ms (plain "
-            f"{p_['ttft'] * 1e3:.1f}), host syncs {k['syncs']}, pool {st['kv_pool_bytes']} B "
+            f"{mode}: tokens identical (captured = eager = plain = contiguous); captured "
+            f"({k['captures']} graphs, {k['capture_s']:.2f} s of warm-up runs and captures "
+            f"included) {n_serve / k['s']:.1f} tok/s, mean TTFT "
+            f"{k['ttft'] * 1e3:.1f} ms; eager {n_serve / e['s']:.1f} tok/s, "
+            f"{e['ttft'] * 1e3:.1f} ms; plain (captured) {n_serve / out['plain']['s']:.1f} tok/s; "
+            f"K3/K4 launches captured {k['launched'][1:]} = eager {e['launched'][1:]}; host syncs "
+            f"{k['syncs']} = {e['syncs']}; pool {st['kv_pool_bytes']} B "
             f"({st['kv_bytes_per_token']:.0f} B/token, {st['kv_dtype']}), preemptions "
-            f"{st['preemptions']}")
-    # one packed step of the mixed loop's shape (phase 8's mixed-step pack)
-    lay = eng._page_layout
+            f"{st['preemptions']}, prefix lookups {st['prefix_lookups']}, hit tokens "
+            f"{st['hit_tokens']}")
+    # one paged decode step (K3) and one packed step (K4) of the loops' shapes
+    # (phase 8's mixed-step pack), eager and captured
+    lay = out["captured"]["layout"]
+    del out
     pcache = init_decode_cache(4, 512, cfg, layout="paged", page_size=lay.page_size,
                                n_pages=lay.n_pages, device=dev)
     rows_tbl = torch.arange(1, lay.n_pages, dtype=torch.int32, device=dev)
@@ -883,24 +940,79 @@ def main() -> int:
     for group in pcache.values():
         for leaves in group.values():
             leaves["tbl"][:] = rows_tbl
-    pack = [torch.as_tensor(a, device=dev) for a in pack_plan(mixed_plan, mixed_bq, 4)]
+    pack = [torch.as_tensor(a, device=dev).long() for a in pack_plan(mixed_plan, mixed_bq, 4)]
     pack[0] = torch.as_tensor(rng.integers(0, cfg.vocab_size, len(sid_np)), device=dev)
-    packed = _breakdown(
-        f"packed step T{len(sid_np)} (3 decode rows + a 16-row chunk, block_q {mixed_bq})",
-        lambda: forward_packed(params, pack[0], pack[1], pack[2], pack[3], pcache, cfg, pack[4],
-                               block_q=mixed_bq))
-    del pcache
+    paged_step = lambda: decode_step_lm(params, pcache, tok4, at, cfg)
+    packed_step = lambda: forward_packed(params, pack[0], pack[1], pack[2], pack[3], pcache, cfg,
+                                         pack[4], block_q=mixed_bq)
+    steps, captured = StepGraphs(dev, graphs=True), {}
+    paged_bd = [_breakdown("eager paged decode step B4 pos300", paged_step),
+                _breakdown("captured", lambda: steps.run(captured, "paged", paged_step))]
+    packed_bd = [
+        _breakdown(f"eager packed step T{len(sid_np)} (3 decode rows + a 16-row chunk, block_q "
+                   f"{mixed_bq})", packed_step),
+        _breakdown("captured", lambda: steps.run(captured, "packed", packed_step))]
+    del pcache, steps, captured
+    # shared-prefix traffic: 8 requests, one 256-token system prompt, 16-64-token
+    # tails. Each engine first serves the same tails behind another system
+    # prompt, so the timed call finds its graphs captured and only its own
+    # system prompt uncached. Then the cache-on engine's TTFT of a lone
+    # request, cold and warm.
+    tails = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+             for n in rng.integers(16, 65, 8)]
+    primer, system = (rng.integers(0, cfg.vocab_size, (256,)).astype(np.int32) for _ in range(2))
+    shared = [np.concatenate([system, x]) for x in tails]
+    shared_report = []
+    for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
+        psc = ServeConfig(max_batch=4, max_len=512, **kw)
+        on, off = (Engine(params, cfg, c, device=dev)
+                   for c in (psc, dataclasses.replace(psc, prefix_cache=False)))
+        for eng in (on, off):
+            eng.serve([np.concatenate([primer, x]) for x in tails], 32)
+        run_on, run_off = (pool_serve(eng, shared) for eng in (on, off))
+        for a, b_ in zip(run_on["toks"], run_off["toks"]):
+            assert np.array_equal(a, b_), f"{mode}: the prefix cache changed the tokens"
+        st = run_on["stats"]
+        assert run_on["hit_tokens"] > 0 and run_off["stats"]["hit_tokens"] == 0, (mode, st)
+        # one request alone, cold (a system prompt the engine has not seen), then
+        # one sharing its prompt, warm; the second such pair is the one timed
+        for fresh in (rng.integers(0, cfg.vocab_size, (256,)).astype(np.int32)
+                      for _ in range(2)):
+            pair = {}
+            for name, tail in (("cold", tails[0]), ("warm", tails[1])):
+                hits0, graphs0 = on.stats()["hit_tokens"], on._steps.captures
+                on.serve([np.concatenate([fresh, tail])], 32)
+                pair[name] = (on.ttft[0], on.stats()["hit_tokens"] - hits0,
+                              on._steps.captures - graphs0)
+        assert pair["cold"][1] == 0 and pair["warm"][1] > 0, (mode, pair)
+        n_sh = sum(len(o) for o in run_on["toks"])
+        shared_report.append(
+            f"{mode}: cache on {n_sh / run_on['s']:.1f} tok/s, mean TTFT "
+            f"{run_on['ttft'] * 1e3:.1f} ms, {run_on['hits']} of 8 admissions hit, "
+            f"{run_on['hit_tokens']} of {sum(map(len, shared))} prompt tokens cached; cache off "
+            f"{n_sh / run_off['s']:.1f} tok/s, mean TTFT {run_off['ttft'] * 1e3:.1f} ms; "
+            f"graphs captured by the timed calls {run_on['new_graphs']} / "
+            f"{run_off['new_graphs']}; tokens identical; one request alone: cold TTFT "
+            f"{pair['cold'][0] * 1e3:.1f} ms ({len(tails[0]) + 256} prompt tokens prefilled), "
+            f"warm TTFT {pair['warm'][0] * 1e3:.1f} ms ({pair['warm'][1]} of "
+            f"{len(tails[1]) + 256} cached), graphs captured by the pair "
+            f"{pair['cold'][2] + pair['warm'][2]}")
+    del on, off, eng
     reset_counts()
-    eng = Engine(params, bcfg, ServeConfig(max_batch=4, max_len=512, prefix_cache=False,
-                                           step_mode="mixed"), device=dev)
+    eng = Engine(params, bcfg, ServeConfig(max_batch=4, max_len=512, step_mode="mixed"),
+                 device=dev)
     t = time.perf_counter()
     out_mb = eng.serve(reqs, 32)
     serve_mb = time.perf_counter() - t
     assert k4.launches > 0 and k2.paged_launches > 0
     ttft_mb = float(np.mean(list(eng.ttft.values())))
+    del eng
     _line(9, f"qwen3-0.6b f32 full width, 8 requests as phase 5, max_batch 4, max_len 512, "
-             f"prefix_cache off: {'; '.join(pool_report)}; launches {pool_launches}; {packed}; "
-             f"bf16 mixed: "
+             f"prefix cache on: {'; '.join(pool_report)}; launches {pool_launches}; "
+             f"{'; '.join(paged_bd)}; {'; '.join(packed_bd)}; shared-prefix traffic (8 requests, "
+             f"a 256-token system prompt + {min(map(len, shared)) - 256}-"
+             f"{max(map(len, shared)) - 256}-token tails, 32 new, captured): "
+             f"{'; '.join(shared_report)}; bf16 mixed (captured): "
              f"{sum(map(len, out_mb)) / serve_mb:.1f} tok/s, mean TTFT {ttft_mb * 1e3:.1f} ms "
              f"(contiguous bf16, phase 6: {sum(map(len, out_b)) / serve_b:.1f} tok/s, "
              f"{ttft_b * 1e3:.1f} ms) {ph}")

@@ -6,8 +6,8 @@ These closed forms were sized for a TPU core's VMEM; on the H100 they
 only decide what the plain versions and the reference-facing APIs do. The
 Hopper kernels' own tiles and splits live in their launch configs
 (`kernels/flashd_fwd.py`, `kernels/flashd_decode.py`). `measure_best` /
-`measured_decode_split` (timed on the JAX backend) and
-`choose_cache_policy` (needs the paged allocator) come with later slices.
+`measured_decode_split` (timed on the JAX backend) come with later
+slices.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ __all__ = [
     "choose_ring_schedule",
     "choose_page_size",
     "choose_page_layout",
+    "choose_cache_policy",
     "choose_varlen_blocks",
     "bucket_pow2",
     "padded_rows",
@@ -297,6 +298,44 @@ def choose_page_layout(
     n_pages = max(2, -(-pool_tokens // page) + 1)
     return PageLayout(
         page_size=page, n_pages=n_pages, pages_per_seq=-(-max_len // page)
+    )
+
+
+def choose_cache_policy(
+    n_pages: int,
+    page_size: int,
+    *,
+    min_free_pages: Optional[int] = None,
+    max_cached_pages: Optional[int] = None,
+):
+    """Retention heuristics for the radix prefix cache (DESIGN.md §3.6).
+
+    The cache trades pool headroom for prefill reuse, and the two knobs
+    bound each side of that trade:
+
+      * min_free_pages — eviction watermark. Donations evict LRU entries
+        until this many pages are physically free, so a fresh admission
+        usually finds pages without paying eviction latency on its own
+        critical path. Default: 1/16 of the pool (≥ 1) — small enough
+        that a hot shared prefix survives, large enough that the common
+        single-page admission never blocks on eviction.
+      * max_cached_pages — hard cap on retained pages. Default: the whole
+        usable pool — retention is free (cached pages are reclaimed on
+        demand before anything else gives), so the only reason to cap
+        below that is to bound the host-side tree walk; callers serving
+        adversarial (never-repeating) traffic can set it low or to 0 to
+        disable retention.
+
+    Explicit values are honored as given (0 is meaningful: a 0 watermark
+    never proactively evicts; a 0 cap disables retention)."""
+    from repro_torch.runtime.kvcache import CachePolicy  # lazy: no cycle
+
+    if min_free_pages is None:
+        min_free_pages = max(1, n_pages // 16)
+    if max_cached_pages is None:
+        max_cached_pages = max(n_pages - 1, 0)
+    return CachePolicy(
+        min_free_pages=min_free_pages, max_cached_pages=max_cached_pages
     )
 
 

@@ -2,13 +2,14 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --requests 8 --prompt-len 64 --max-new-tokens 32 --max-batch 4
-    # the paged loop / the mixed chunked-prefill loop (the prefix cache is
-    # not ported, so both need --no-prefix-cache):
-    ... --kv-layout paged --no-prefix-cache
-    ... --step-mode mixed --no-prefix-cache --prefill-chunk 16
+    # the paged loop / the mixed chunked-prefill loop (the radix prefix cache
+    # on, as the reference's default; --no-prefix-cache turns it off):
+    ... --kv-layout paged
+    ... --step-mode mixed --prefill-chunk 16
 
 Runs on the card unless `--device cpu` is given (then at `--smoke` widths,
-as a check of the control flow). Prints each request's tokens, the
+as a check of the control flow). On the card the engine replays its steps
+as captured CUDA graphs. Prints each request's tokens, the
 throughput and the per-request time-to-first-token, as the reference
 launcher does. Real checkpoints are not in the repository: the weights
 are drawn from `--seed`.
@@ -51,8 +52,8 @@ def main(argv=None):
     p.add_argument("--prefill-chunk", type=int, default=16,
                    help="max prompt tokens one sequence feeds per mixed step")
     p.add_argument("--no-prefix-cache", action="store_true",
-                   help="disable the radix prefix cache (not ported: the paged and mixed "
-                        "loops need this flag)")
+                   help="disable the radix prefix cache of the paged and mixed loops (on by "
+                        "default: an admission reuses the cached full pages of its prompt)")
     p.add_argument("--no-preemption", action="store_true",
                    help="reserve each request's worst case at admission instead of "
                         "preempting under page pressure")
@@ -104,7 +105,9 @@ def main(argv=None):
     if "kv_pool_bytes" in st:
         print(f"kv pool: {st['kv_dtype']}, {st['kv_pool_bytes'] / 1024:.1f} KiB "
               f"({st['kv_bytes_per_token']:.0f} B/token), {st['preemptions']} preemptions, "
-              f"{st['host_syncs']} host syncs")
+              f"{st['host_syncs']} host syncs; prefix cache "
+              f"{'on' if st['prefix_cache_enabled'] else 'off'}, {st['hit_tokens']} of "
+              f"{st['prompt_tokens']} prompt tokens cached")
     return 0
 
 

@@ -42,7 +42,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
 def _rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    freqs = torch.pow(float(theta), exps)  # a scalar base: no host→device copy (graph capture)
     ang = positions[..., None].float() * freqs  # [..., half]
     return torch.cos(ang), torch.sin(ang)
 

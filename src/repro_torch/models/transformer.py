@@ -49,6 +49,8 @@ __all__ = [
     "lm_loss",
     "init_decode_cache",
     "decode_step_lm",
+    "decode_hidden_lm",
+    "logits_lm",
     "prefill_lm",
     "paged_mixers",
     "packed_mixers_ok",
@@ -447,12 +449,24 @@ def _decode_hidden(params, cache, token, pos, cfg: ModelConfig, alive=None):
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
+def decode_hidden_lm(params: dict, cache: dict, token: torch.Tensor, pos: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """One decode step without the LM head: token [B], pos [B] → the
+    final-normed hidden state [B, 1, D], the cache updated in place (the
+    step the engine's prefill runs once per prompt position)."""
+    return _decode_hidden(params, cache, token, pos.long(), cfg)
+
+
+def logits_lm(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head on final-normed hidden states [B, 1, D] → f32 logits [B, Vpad]."""
+    return logits_from_hidden(h, _head(params, cfg), cfg.vocab_size)[:, 0]
+
+
 def decode_step_lm(params: dict, cache: dict, token: torch.Tensor, pos: torch.Tensor,
                    cfg: ModelConfig):
     """One decode step. token [B], pos [B] → (logits [B, Vpad], cache), the
     cache updated in place."""
-    h = _decode_hidden(params, cache, token, pos.long(), cfg)
-    return logits_from_hidden(h, _head(params, cfg), cfg.vocab_size)[:, 0], cache
+    return logits_lm(params, decode_hidden_lm(params, cache, token, pos, cfg), cfg), cache
 
 
 def prefill_lm(params: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig,
@@ -482,8 +496,7 @@ def prefill_lm(params: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig
         take = (torch.ones_like(seen) if lengths is None else t == lengths - 1)
         h_last = torch.where(take[:, None, None], h, h_last)
         seen = seen | take
-    logits = logits_from_hidden(h_last, _head(params, cfg), cfg.vocab_size)[:, 0]
-    return torch.where(seen[:, None], logits, 0.0), cache
+    return torch.where(seen[:, None], logits_lm(params, h_last, cfg), 0.0), cache
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@
 reference's three loops:
 
   contiguous (default) — each slot owns a fixed max_len-wide cache region;
-    prefill is `prefill_lm`, one decode step per prompt position (K2).
+    prefill is one decode step per prompt position (K2), as the
+    reference's `prefill_lm`.
   paged (kv_layout="paged") — KV lives in a global page pool with
     per-sequence block tables (`repro_torch.runtime.kvcache`, copied from
     the reference); admission is by free pages, decode and prefill run K3.
@@ -25,16 +26,29 @@ The paged loops keep both of the reference's admission modes: with
 draws the free pool and page pressure preempts the lowest-priority,
 youngest slot (recompute-on-resume keeps every stream token-identical);
 without, the worst case is reserved up front and a blocked head waits for
-frees. The allocator and the device page pool live on the engine across
-serve() calls. Prefix reuse (the radix prefix cache, A7) is not wired:
-paged and mixed engines need `prefix_cache=False`, so every prompt
-prefills in full.
+frees. The allocator, its radix prefix cache and the device page pool live
+on the engine across serve() calls. With the prefix cache on (the default,
+as the reference's), an admission aliases the cached full pages of its
+prompt and prefills only the tail: the paged loop from `start_pos`, the
+mixed loop from `fed0`; retirement and preemption donate a slot's clean
+token stream's pages to the cache, and a live prompt is indexed once its
+prefill completes.
 
-Device work runs eagerly on the engine's device (the card by default).
-PyTorch has no compile step to bucket for, so the port prefills exactly
-the real prompt length (the reference pads to a power of two and masks the
-padding with `lengths=`, which gives the same result); packed steps keep
-the reference's power-of-two pack lengths, so both packers yield the same
+Device work runs on the engine's device (the card by default) as steps
+over static buffers (`repro_torch.serve.graphs`): the reference's jitted
+programs become one graph each — `decode_chunk` decode steps with their
+sampling (`_chunk_fn`; `generate` replays the one-step graph), one prompt
+position of a slot's prefill (`_prefill`, replayed per position from
+`start_pos`) and the sampling of its last position, and the packed step
+per power-of-two pack length (`_mixed_fn`). A CUDA engine captures each
+step on first use and replays it after (`graphs=None`, the default);
+`graphs=False` runs the same steps eagerly (the oracle), and a CPU engine
+always does. The caches, the buffers and the graphs live on the engine
+and are reused across serve() and generate() calls. PyTorch has no
+compile step to bucket for, so the port prefills exactly the real prompt
+length (the reference pads to a power of two and masks the padding with
+`lengths=`, which gives the same result); packed steps keep the
+reference's power-of-two pack lengths, so both packers yield the same
 layout.
 
 Host syncs: `generate` keeps every token on the device and copies them to
@@ -44,30 +58,36 @@ mixed loop once per packed step or decode chunk. Caches are updated in
 place, so a step is committed before its sync (the reference commits after
 it; fault retry, A10, needs that back).
 
-Not ported yet, and refused at construction: the prefix cache on the
-paged pool (A7), quantized KV (A8), speculation (A9), fault injection and
-snapshot / restore (A10).
+Not ported yet, and refused at construction: quantized KV (A8),
+speculation (A9), fault injection and snapshot / restore (A10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Set, Union
 
 import numpy as np
 import torch
 
 from repro_torch.devices import resolve_device
-from repro_torch.kernels.tuning import bucket_pow2, choose_page_layout, choose_varlen_blocks
+from repro_torch.kernels.tuning import (
+    bucket_pow2,
+    choose_cache_policy,
+    choose_page_layout,
+    choose_varlen_blocks,
+)
 from repro_torch.models import ModelConfig, get_model
 from repro_torch.models.transformer import (
+    decode_hidden_lm,
     forward_packed,
+    logits_lm,
     packed_mixers_ok,
     paged_mixers,
-    prefill_lm,
 )
 from repro_torch.runtime.kvcache import CachePolicy, PagedKVAllocator, PageError, pages_for
+from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.scheduler import Request, Scheduler, StepPlan
 
 __all__ = ["ServeConfig", "Engine", "sample_token", "pack_plan"]
@@ -89,13 +109,12 @@ class ServeConfig:
     page_size: int = 0  # 0 → tuning heuristic
     kv_pool_tokens: int = 0  # pool size in tokens; 0 → max_batch·max_len
     kv_dtype: str = ""  # quantized pool: A8
-    # prefix reuse (the radix prefix cache) is A7: a paged or mixed engine
-    # refuses prefix_sharing and prefix_cache both on (the reference's
-    # defaults, under which it would reuse prefixes)
+    # prefix reuse: `prefix_sharing` is the soundness gate (global-attention
+    # stacks), `prefix_cache` the radix prefix cache across requests
     prefix_sharing: bool = True
     prefix_cache: bool = True
-    cache_min_free_pages: int = -1  # prefix-cache eviction watermark (A7)
-    cache_max_pages: int = -1  # prefix-cache retained-page cap (A7)
+    cache_min_free_pages: int = -1  # eviction watermark; <0 → choose_cache_policy
+    cache_max_pages: int = -1  # retained-page cap; <0 → choose_cache_policy
     preemption: bool = True  # optimistic admission + victim preemption
     # ---- mixed varlen step ----
     step_mode: str = "sequential"  # "mixed": chunked-prefill packed steps
@@ -172,28 +191,53 @@ def pack_plan(plan: StepPlan, block_q: int, max_batch: int):
     return tokens, seq_ids, positions, kv_len, last_rows
 
 
+class _Bank:
+    """One device cache and the static buffers of the steps that run on it:
+    the decode state `tok` / `pos` [B] (rows of one [2, B] buffer, so the
+    mixed loop stages both in one copy), named buffers created on first
+    use, and the graphs of its steps."""
+
+    def __init__(self, cache: dict, rows: int, device: torch.device):
+        self.cache = cache
+        self.rows = rows
+        self.state = torch.zeros((2, rows), dtype=torch.long, device=device)
+        self.tok, self.pos = self.state[0], self.state[1]
+        self.graphs: dict = {}
+        self._device = device
+        self._bufs: dict = {}
+
+    def buf(self, name, shape, dtype: torch.dtype = torch.long) -> torch.Tensor:
+        t = self._bufs.get(name)
+        if t is None:
+            t = self._bufs[name] = torch.zeros(shape, dtype=dtype, device=self._device)
+        return t
+
+
 class _PoolCtx:
     """Mutable per-serve() context of the paged loops: the device cache
-    tree plus the slot → allocator-sequence map."""
+    tree plus the slot → allocator-sequence map and which slots' prompts
+    are already indexed in the radix tree."""
 
-    __slots__ = ("cache", "seq_of")
+    __slots__ = ("cache", "seq_of", "inserted")
 
     def __init__(self, cache):
         self.cache = cache
         self.seq_of: dict = {}
+        self.inserted: Set[int] = set()
 
 
 class Engine:
     def __init__(self, params: dict, model_cfg: ModelConfig, serve_cfg: ServeConfig,
-                 *, device=None):
+                 *, device=None, graphs: Optional[bool] = None):
+        """`graphs`: replay the steps as captured CUDA graphs (None → on a
+        CUDA engine, eager on the CPU; False → eager on the card too, the
+        oracle; True on the CPU raises)."""
         if serve_cfg.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {serve_cfg.kv_layout!r}")
         if serve_cfg.step_mode not in ("sequential", "mixed"):
             raise ValueError(f"unknown step_mode {serve_cfg.step_mode!r}")
         pooled = serve_cfg.kv_layout == "paged" or serve_cfg.step_mode == "mixed"
         unported = {
-            "prefix_cache": (pooled and serve_cfg.prefix_sharing and serve_cfg.prefix_cache,
-                             "A7; pass prefix_cache=False"),
             "kv_dtype": (bool(serve_cfg.kv_dtype), "A8"),
             "spec_tokens": (serve_cfg.spec_tokens > 0, "A9"),
             "fault_rate": (serve_cfg.fault_rate > 0, "A10"),
@@ -211,10 +255,15 @@ class Engine:
         self.sc = serve_cfg
         self.api = get_model(model_cfg)
         self._gen = torch.Generator(device=self.device).manual_seed(serve_cfg.seed)
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self._steps = StepGraphs(self.device, graphs=graphs, generator=self._gen)
         self.host_syncs = 0  # device→host copies issued by this engine
         self.peak_active = 0  # max concurrent sequences observed by `serve`
         self.ttft = {}  # rid → time-to-first-token of the last serve() call
-        self._stats = {"preemptions": 0, "failed": 0, "retried": 0, "expired": 0}
+        self._stats = {"prefix_lookups": 0, "prefix_hits": 0, "hit_tokens": 0,
+                       "prompt_tokens": 0, "preemptions": 0, "failed": 0, "retried": 0,
+                       "expired": 0}
         self._sched: Optional[Scheduler] = None
         # paged geometry (paged or mixed engines with a global-attention layer)
         self._page_layout = None
@@ -227,9 +276,16 @@ class Engine:
             )
         self._mixed_ok = (serve_cfg.step_mode == "mixed" and self._page_layout is not None
                           and packed_mixers_ok(model_cfg))
-        # engine-lifetime paged state: allocator + device page pool
+        # prefix reuse skips the shared positions' prefill steps, sound only
+        # when every mixer reads the paged cache alone; the radix prefix
+        # cache addresses pages by content on the same condition
+        self._cache_on = (self._page_layout is not None and serve_cfg.prefix_sharing
+                          and packed_mixers_ok(model_cfg) and serve_cfg.prefix_cache)
+        # engine-lifetime state: the allocator (radix tree included) and the
+        # page pool, the contiguous caches by batch size, and their steps
         self._alloc: Optional[PagedKVAllocator] = None
-        self._paged_cache: Optional[dict] = None
+        self._paged: Optional[_Bank] = None
+        self._contig: dict = {}
         self._seq_base = 0  # allocator sequence ids, unique across calls
 
     def _to_host(self, x: torch.Tensor) -> np.ndarray:
@@ -265,21 +321,24 @@ class Engine:
         self._stats["expired"] += sched.expired
 
     def stats(self) -> dict:
-        """Serving counters, cumulative over this engine's lifetime, plus the
-        last serve() call's per-request TTFT and statuses."""
+        """Serving counters, cumulative over this engine's lifetime: prefix-
+        cache hit rate (token-weighted), preemption / eviction / donation
+        counts, pool occupancy; plus the last serve() call's per-request
+        TTFT and statuses."""
         s = dict(self._stats)
+        s["hit_rate"] = s["hit_tokens"] / max(s["prompt_tokens"], 1)
+        s["prefix_cache_enabled"] = self._cache_on
+        s["preemption_enabled"] = bool(self.sc.preemption)
         s["peak_active"] = self.peak_active
         s["ttft"] = dict(self.ttft)
         s["attn_impl"] = self.mc.attn_impl
         s["host_syncs"] = self.host_syncs
-        s["preemption_enabled"] = bool(self.sc.preemption)
-        s["prefix_cache_enabled"] = False  # A7
         if self._alloc is not None:
             s.update(evictions=self._alloc.evictions, donated_pages=self._alloc.donated_pages,
                      cached_pages=self._alloc.cached_pages,
                      pages_in_use=self._alloc.pages_in_use, free_pages=self._alloc.free_pages)
-        if self._paged_cache is not None:
-            seen = sum(x.numel() * x.element_size() for name, x in _leaves(self._paged_cache)
+        if self._paged is not None:
+            seen = sum(x.numel() * x.element_size() for name, x in _leaves(self._paged.cache)
                        if name in _POOL_LEAVES)
             pool_tokens = self._page_layout.n_pages * self._page_layout.page_size
             s["kv_pool_bytes"] = int(seen)
@@ -294,37 +353,91 @@ class Engine:
 
     restore = resume = snapshot
 
+    # ---- the steps, over static buffers (one graph each on the card) ----
+    def _contiguous(self, b: int) -> _Bank:
+        """The contiguous cache of batch size b, created on first use."""
+        bank = self._contig.get(b)
+        if bank is None:
+            cache = self.api.init_cache(b, self.sc.max_len, self.mc, device=self.device)
+            bank = self._contig[b] = _Bank(cache, b, self.device)
+        return bank
+
+    def _decode_chunk(self, bank: _Bank, n: int) -> torch.Tensor:
+        """`n` decode steps with their sampling from bank.tok / bank.pos,
+        which advance in place (the reference's `_chunk_fn`); dead slots
+        step in lockstep. Returns the static [n, B] tokens buffer."""
+        out = bank.buf(("chunk", n), (n, bank.rows))
+
+        def chunk():
+            for i in range(n):
+                logits, _ = self.api.decode_step(self.params, bank.cache, bank.tok, bank.pos,
+                                                 self.mc)
+                out[i].copy_(sample_token(logits, self._gen, self.sc))
+                bank.tok.copy_(out[i])
+                bank.pos.add_(1)
+
+        self._steps.run(bank.graphs, ("chunk", n), chunk)
+        return out
+
+    def _prefill(self, bank: _Bank, slot: Optional[int], tokens: np.ndarray,
+                 start: int) -> torch.Tensor:
+        """Prefill `tokens` [rows, n] at positions start … start + n − 1 into
+        `slot`'s view of the bank (rows 1), or into every row (slot None:
+        `generate`), one step per position as the reference's
+        `prefill_lm`; then sample the last position. Returns the sampled
+        tokens' static buffer [rows] (bank.tok for slot None)."""
+        rows, n = tokens.shape
+        view = bank.cache if slot is None else _slot_view(bank.cache, slot)  # one graph a slot
+        pre = bank.buf(("prompt", rows), (rows, self.sc.max_len + 2))  # tokens | pos | index
+        h_last = bank.buf(("hidden", rows), (rows, 1, self.mc.d_model), self.mc.compute_dtype)
+        out = bank.tok if slot is None else bank.buf("first", (1,))
+        staged = np.zeros(pre.shape, np.int64)
+        staged[:, :n] = tokens
+        staged[:, -2] = start
+        self._steps.put(pre, staged)
+
+        def position():
+            tok = pre.gather(1, pre[:, -1:])[:, 0]
+            h_last.copy_(decode_hidden_lm(self.params, view, tok, pre[:, -2], self.mc))
+            pre[:, -2:].add_(1)
+
+        def first():
+            out.copy_(sample_token(logits_lm(self.params, h_last, self.mc), self._gen, self.sc))
+
+        for _ in range(n):
+            self._steps.run(bank.graphs, ("prefill", slot), position)
+        self._steps.run(bank.graphs, ("first", slot is None), first)
+        return out
+
     # ---- single-prompt-batch generation (prefill + n decode steps) ----
     def generate(self, prompts: np.ndarray, max_new_tokens: int) -> np.ndarray:
         """prompts [B, S_prompt] int → generated tokens [B, max_new_tokens].
 
-        The whole loop stays on the device — sampling and early-EOS masking
-        included (after a row samples eos_id, its later tokens are eos_id) —
-        and the tokens are copied to the host once."""
+        The whole loop stays on the device and the tokens are copied to the
+        host once; early-EOS masking (after a row samples eos_id, its later
+        tokens are eos_id) is applied to that copy."""
+        prompts = np.asarray(prompts)
         b, s = prompts.shape
         if s + max_new_tokens > self.sc.max_len:
             raise ValueError(f"prompt {s} + {max_new_tokens} exceeds max_len {self.sc.max_len}")
-        eos = self.sc.eos_id
+        if max_new_tokens == 0:
+            return np.zeros((b, 0), np.int64)
         with torch.inference_mode():
-            cache = self.api.init_cache(b, self.sc.max_len, self.mc, device=self.device)
-            toks = torch.as_tensor(np.asarray(prompts), dtype=torch.long, device=self.device)
-            logits, cache = prefill_lm(self.params, toks, cache, self.mc)
-            pos = torch.full((b,), s, dtype=torch.long, device=self.device)
-            done = torch.zeros((b,), dtype=torch.bool, device=self.device)
-            out = []
-            for i in range(max_new_tokens):
-                tok = sample_token(logits, self._gen, self.sc)
-                if eos >= 0:
-                    out.append(torch.where(done, eos, tok))
-                    done = done | (tok == eos)
-                else:
-                    out.append(tok)
-                if i + 1 < max_new_tokens:  # the last token needs no decode step
-                    logits, cache = self.api.decode_step(self.params, cache, tok, pos, self.mc)
-                    pos = pos + 1
-            if not out:
-                return np.zeros((b, 0), np.int64)
-            return self._to_host(torch.stack(out, dim=1))
+            bank = self._contiguous(b)
+            for _, leaf in _leaves(bank.cache):
+                leaf.zero_()
+            self._prefill(bank, None, prompts, 0)  # the first tokens land in bank.tok
+            bank.pos.fill_(s)
+            out = torch.empty((max_new_tokens, b), dtype=torch.long, device=self.device)
+            out[0].copy_(bank.tok)
+            for i in range(1, max_new_tokens):
+                out[i].copy_(self._decode_chunk(bank, 1)[0])
+            toks = self._to_host(out).T
+        eos = self.sc.eos_id
+        if eos >= 0:
+            hit = toks == eos
+            toks = np.where(np.cumsum(hit, axis=1) - hit > 0, eos, toks)
+        return toks
 
     # ---- continuous batching over a request queue ----
     def serve(self, requests: Sequence[Union[np.ndarray, Request]], max_new_tokens: int,
@@ -338,7 +451,8 @@ class Engine:
 
         Routing as the reference: `step_mode="mixed"` runs the mixed loop,
         otherwise `kv_layout` picks the paged or contiguous sequential loop.
-        All three give the same tokens under greedy sampling."""
+        All three give the same tokens under greedy sampling, with the
+        prefix cache and preemption on or off."""
         with torch.inference_mode():
             if self._mixed_ok:
                 return self._serve_mixed(requests, max_new_tokens, priorities, deadlines)
@@ -354,11 +468,9 @@ class Engine:
     def _serve_impl(self, requests, max_new_tokens: int, priorities=None,
                     deadlines=None) -> List[np.ndarray]:
         b = self.sc.max_batch
-        dev = self.device
         sched = self._make_sched(requests, max_new_tokens, priorities, deadlines)
-        cache = self.api.init_cache(b, self.sc.max_len, self.mc, device=dev)
-        tok = torch.zeros((b,), dtype=torch.long, device=dev)
-        pos = torch.zeros((b,), dtype=torch.long, device=dev)
+        bank = self._contiguous(b)
+        bank.state.zero_()
         chunk_n = max(1, min(self.sc.decode_chunk, max_new_tokens))
 
         def assign(slot: int):
@@ -368,18 +480,15 @@ class Engine:
             replays its pre-preemption tokens. Requests that complete at
             once are finalized and the next is taken."""
             while (req := sched.take_head()) is not None:
-                toks = req.tokens
+                toks = np.asarray(req.tokens)
                 self._check_len(req.rid, len(req.prompt), max_new_tokens)
-                view = _slot_view(cache, slot)
-                for _, leaf in _leaves(view):
+                for _, leaf in _leaves(_slot_view(bank.cache, slot)):
                     leaf.zero_()
-                prompt = torch.as_tensor(np.asarray(toks), dtype=torch.long, device=dev)
-                logits, _ = prefill_lm(self.params, prompt[None], view, self.mc)
-                t0 = int(self._to_host(sample_token(logits, self._gen, self.sc))[0])
+                t0 = int(self._to_host(self._prefill(bank, slot, toks[None], 0))[0])
                 if not sched.admit_request(slot, req, t0):
                     continue
-                tok[slot] = t0
-                pos[slot] = len(toks)
+                bank.tok[slot] = t0
+                bank.pos[slot] = len(toks)
                 return
 
         def preempt_for_priority():
@@ -411,13 +520,7 @@ class Engine:
                     break
                 refill()
                 continue
-            chunk = []
-            for _ in range(chunk_n):  # dead slots step in lockstep; ignored
-                logits, cache = self.api.decode_step(self.params, cache, tok, pos, self.mc)
-                tok = sample_token(logits, self._gen, self.sc)
-                pos = pos + 1
-                chunk.append(tok)
-            toks_np = self._to_host(torch.stack(chunk))  # one sync per chunk
+            toks_np = self._to_host(self._decode_chunk(bank, chunk_n))  # one sync per chunk
             for s in sched.absorb_chunk(toks_np):
                 sched.retire(s)
                 assign(s)  # overwrites the slot's cache / tok / pos
@@ -428,26 +531,38 @@ class Engine:
 
     # ---- paged-pool shared machinery ----
     def _paged_state(self):
-        """Engine-lifetime paged state: the allocator and the device page
-        pool, created on first use and reused across serve() calls. With
-        the prefix cache unported (A7) the allocator retains no pages."""
+        """Engine-lifetime paged state: the allocator (radix tree included)
+        and the device page pool with its steps, created on first use and
+        reused across serve() calls, so cached prefixes persist between
+        request batches."""
         if self._alloc is None:
             lay = self._page_layout
-            self._alloc = PagedKVAllocator(lay.n_pages, lay.page_size,
-                                           cache_policy=CachePolicy(max_cached_pages=0))
-            self._paged_cache = self.api.init_cache(
+            if self._cache_on:
+                policy = choose_cache_policy(
+                    lay.n_pages, lay.page_size,
+                    min_free_pages=(None if self.sc.cache_min_free_pages < 0
+                                    else self.sc.cache_min_free_pages),
+                    max_cached_pages=(None if self.sc.cache_max_pages < 0
+                                      else self.sc.cache_max_pages),
+                )
+            else:
+                policy = CachePolicy(max_cached_pages=0)
+            self._alloc = PagedKVAllocator(lay.n_pages, lay.page_size, cache_policy=policy)
+            cache = self.api.init_cache(
                 self.sc.max_batch, self.sc.max_len, self.mc, layout="paged",
                 page_size=lay.page_size, n_pages=lay.n_pages, device=self.device,
             )
-        return self._alloc, self._paged_cache
+            self._paged = _Bank(cache, self.sc.max_batch, self.device)
+        return self._alloc, self._paged
 
     def _drop_paged_state(self) -> None:
         """A serve() that raised leaves its sequences in the allocator: drop
-        the pool and start the next call cold (the reference folds live
-        slots back into the queue and keeps the pool warm — A10)."""
-        self._alloc = self._paged_cache = None
+        the pool, its cached prefixes and its graphs, and start the next
+        call cold (the reference folds live slots back into the queue and
+        keeps the pool warm — A10)."""
+        self._alloc = self._paged = None
 
-    def _set_tbl_row(self, cache, slot: int, table: List[int]):
+    def _set_tbl_row(self, cache, slot: int, table: List[int]) -> None:
         """Mirror one slot's allocator block table into every layer's `tbl`
         leaf, in place (zero-padded: unmapped logical pages point at the
         garbage page)."""
@@ -457,34 +572,42 @@ class Engine:
         for name, leaf in _leaves(cache):
             if name == "tbl":
                 leaf[:, slot] = row_t
-        return cache
 
-    def _copy_pages(self, cache, cows):
+    def _copy_pages(self, cache, cows) -> None:
         """pages[:, dst] ← pages[:, src] for every owed copy-on-write copy."""
         if not cows:
-            return cache
+            return
         srcs = torch.as_tensor([cw.src for cw in cows], device=self.device)
         dsts = torch.as_tensor([cw.dst for cw in cows], device=self.device)
         for name, leaf in _leaves(cache):
             if name in _POOL_LEAVES:
                 leaf[:, dsts] = leaf[:, srcs]
-        return cache
 
-    def _pool_release(self, alloc, ctx: _PoolCtx, s: int) -> None:
-        """Free slot s's pages and park its table row on the garbage page
-        before the pages can be reassigned (the prefix cache, A7, would
-        donate them instead)."""
-        alloc.free(ctx.seq_of.pop(s))
-        ctx.cache = self._set_tbl_row(ctx.cache, s, [])
+    def _pool_drop(self, alloc, seq: int, stream) -> None:
+        """Retire allocator sequence `seq`: donate the full pages of its
+        clean token stream to the radix tree (plain-free them with the cache
+        off)."""
+        if self._cache_on:
+            alloc.donate(seq, stream)
+        else:
+            alloc.free(seq)
+
+    def _pool_release(self, sched: Scheduler, alloc, ctx: _PoolCtx, s: int) -> None:
+        """Give slot s's pages back (`_pool_drop`) and park its table row on
+        the garbage page before the pages can be reassigned."""
+        stream = sched.slots[s].cache_tokens()
+        ctx.inserted.discard(s)
+        self._pool_drop(alloc, ctx.seq_of.pop(s), stream)
+        self._set_tbl_row(ctx.cache, s, [])
 
     def _pool_retire(self, sched: Scheduler, alloc, ctx: _PoolCtx, s: int) -> None:
-        self._pool_release(alloc, ctx, s)
+        self._pool_release(sched, alloc, ctx, s)
         sched.retire(s)
 
     def _pool_preempt(self, sched: Scheduler, alloc, ctx: _PoolCtx, s: int) -> None:
-        """Victim preemption: free the slot's pages and re-queue the request
-        (recompute-on-resume)."""
-        self._pool_release(alloc, ctx, s)
+        """Victim preemption: donate the slot's pages (a resumed match makes
+        recompute-on-resume nearly free) and re-queue the request."""
+        self._pool_release(sched, alloc, ctx, s)
         sched.preempt(s)
 
     def _pool_grow(self, sched: Scheduler, alloc, ctx: _PoolCtx, s: int, want: int) -> bool:
@@ -504,9 +627,9 @@ class Engine:
                 if v == s:
                     return False
                 continue
-            ctx.cache = self._copy_pages(ctx.cache, cows)
+            self._copy_pages(ctx.cache, cows)
             if cows or len(alloc.table(seq)) != before:
-                ctx.cache = self._set_tbl_row(ctx.cache, s, alloc.table(seq))
+                self._set_tbl_row(ctx.cache, s, alloc.table(seq))
             return True
 
     def _grow_live(self, sched: Scheduler, alloc, ctx: _PoolCtx, chunk_n: int) -> None:
@@ -526,33 +649,53 @@ class Engine:
             return n
         return min(n + max_new_tokens - len(req.out) + chunk_n, self.sc.max_len)
 
+    def _pool_match(self, alloc, toks: np.ndarray):
+        """Radix lookup for an admission, capped so ≥ 1 token prefills."""
+        if not self._cache_on:
+            return None
+        return alloc.match_prefix(toks, max_tokens=len(toks) - 1)
+
     def _preempting_could_admit(self, sched: Scheduler, alloc, ctx: _PoolCtx, req: Request,
-                                reserve: int) -> bool:
+                                reserve: int, cached) -> bool:
         """Even rolling back EVERY strictly-lower-priority victim frees at
-        most their table pages: if that cannot cover the arrival, the head
-        waits instead of discarding running work for nothing."""
+        most their table pages: if that cannot cover the arrival (less its
+        cached pages), the head waits instead of discarding running work
+        for nothing."""
+        need = pages_for(reserve, alloc.page_size)
+        if cached is not None:
+            need -= len(cached.pages)
         bound = alloc.free_pages + alloc.evictable_pages
         for s, sl in enumerate(sched.slots):
             if sl.live and sl.priority < req.priority:
                 bound += len(alloc.table(ctx.seq_of[s]))
-        return pages_for(reserve, alloc.page_size) <= bound
+        return need <= bound
+
+    def _note_admission(self, toks, cached) -> None:
+        self._stats["prefix_lookups"] += 1
+        self._stats["prompt_tokens"] += len(toks)
+        if cached is not None and cached.n_tokens > 0:
+            self._stats["prefix_hits"] += 1
+            self._stats["hit_tokens"] += cached.n_tokens
 
     def _admit_to_pool(self, sched: Scheduler, alloc, ctx: _PoolCtx, req: Request,
-                       max_new_tokens: int, chunk_n: int) -> Optional[int]:
-        """Page admission of the head request: evict / preempt lower-priority
-        victims as needed. Returns the new allocator sequence (the request
-        taken off the queue), or None when the head must wait (then nothing
-        changed) — raising when nothing live could ever free enough."""
+                       max_new_tokens: int, chunk_n: int):
+        """Page admission of the head request, aliasing its cached prefix:
+        evict / preempt lower-priority victims as needed. Returns (the new
+        allocator sequence, the cached prefix or None) — the request taken
+        off the queue — or None when the head must wait (then nothing
+        changed), raising when nothing live could ever free enough."""
+        toks = req.tokens
         while True:
             self._check_len(req.rid, len(req.prompt), max_new_tokens)
             reserve = self._pool_reserve(req, max_new_tokens, chunk_n)
-            if alloc.can_admit(reserve):
+            cached = self._pool_match(alloc, toks)
+            if alloc.can_admit(reserve, cached=cached):
                 break
             if self.sc.preemption and self._preempting_could_admit(
-                    sched, alloc, ctx, req, reserve) and (
+                    sched, alloc, ctx, req, reserve, cached) and (
                     v := sched.victim_slot(below=req.priority)) is not None:
                 self._pool_preempt(sched, alloc, ctx, v)
-                continue
+                continue  # re-match: the donation may extend the prefix
             if sched.has_active():
                 return None  # live sequences will free pages
             raise PageError(f"request {req.rid} needs {pages_for(reserve, alloc.page_size)}"
@@ -560,47 +703,52 @@ class Engine:
         sched.take_head()
         seq = self._seq_base
         self._seq_base += 1
-        alloc.admit(seq, prompt_len=len(req.tokens), reserve_tokens=reserve)
-        return seq
+        alloc.admit(seq, prompt_len=len(toks), reserve_tokens=reserve, cached=cached)
+        self._note_admission(toks, cached)
+        return seq, cached
 
     # ---- paged sequential loop ----
     def _serve_paged(self, requests, max_new_tokens: int, priorities=None,
                      deadlines=None) -> List[np.ndarray]:
         """Sequential continuous batching over the page pool: admission by
-        free pages; before every chunk the allocator materializes pages
-        for the chunk's writes (preempting under pressure) and the tables
-        are mirrored to the device; finished slots free their pages and
-        park their table row on the garbage page, so lockstep writes of
-        dead slots stay harmless."""
+        free pages; a prompt's cached full pages are aliased into its block
+        table and only the tail is prefilled (`start_pos`); before every
+        chunk the allocator materializes pages for the chunk's writes
+        (preempting under pressure) and the tables are mirrored to the
+        device; finished slots donate their pages and park their table row
+        on the garbage page, so lockstep writes of dead slots stay
+        harmless."""
         b = self.sc.max_batch
-        dev = self.device
         sched = self._make_sched(requests, max_new_tokens, priorities, deadlines)
-        alloc, cache0 = self._paged_state()
-        ctx = _PoolCtx(cache0)
-        tok = torch.zeros((b,), dtype=torch.long, device=dev)
-        pos = torch.zeros((b,), dtype=torch.long, device=dev)
+        alloc, bank = self._paged_state()
+        ctx = _PoolCtx(bank.cache)
+        bank.state.zero_()
         chunk_n = max(1, min(self.sc.decode_chunk, max_new_tokens))
 
         def assign(slot: int) -> bool:
             """Admit the head request into `slot` if the pool can cover it
-            and prefill it there; False (queue intact) when it must wait."""
+            and prefill its uncached tail there; False (queue intact) when
+            it must wait."""
             while (req := sched.head()) is not None:
-                seq = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
-                if seq is None:
+                got = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
+                if got is None:
                     return False
-                toks = req.tokens
-                ctx.cache = self._set_tbl_row(ctx.cache, slot, alloc.table(seq))
-                prompt = torch.as_tensor(np.asarray(toks), dtype=torch.long, device=dev)
-                logits, _ = prefill_lm(self.params, prompt[None], _slot_view(ctx.cache, slot),
-                                       self.mc)
-                t0 = int(self._to_host(sample_token(logits, self._gen, self.sc))[0])
-                if not sched.admit_request(slot, req, t0):  # done on its first token
-                    alloc.free(seq)
-                    ctx.cache = self._set_tbl_row(ctx.cache, slot, [])
+                seq, cached = got
+                toks = np.asarray(req.tokens)
+                start = cached.n_tokens if cached is not None else 0
+                self._set_tbl_row(ctx.cache, slot, alloc.table(seq))
+                t0 = int(self._to_host(self._prefill(bank, slot, toks[None, start:], start))[0])
+                if not sched.admit_request(slot, req, t0):
+                    # done on its first token: its pages hold the whole prompt's KV
+                    self._pool_drop(alloc, seq, toks)
+                    self._set_tbl_row(ctx.cache, slot, [])
                     continue
                 ctx.seq_of[slot] = seq
-                tok[slot] = t0
-                pos[slot] = len(toks)
+                if self._cache_on:  # index the live prompt (its KV is valid now)
+                    alloc.insert(seq, toks)
+                    ctx.inserted.add(slot)
+                bank.tok[slot] = t0
+                bank.pos[slot] = len(toks)
                 return True
             return False
 
@@ -633,14 +781,8 @@ class Engine:
                     self.peak_active = sched.note_peak()
                     continue
                 self._grow_live(sched, alloc, ctx, chunk_n)
-                chunk = []
-                for _ in range(chunk_n):  # dead slots step in lockstep on page 0
-                    logits, ctx.cache = self.api.decode_step(self.params, ctx.cache, tok, pos,
-                                                             self.mc)
-                    tok = sample_token(logits, self._gen, self.sc)
-                    pos = pos + 1
-                    chunk.append(tok)
-                toks_np = self._to_host(torch.stack(chunk))  # one sync per chunk
+                # dead slots step in lockstep on page 0; one sync per chunk
+                toks_np = self._to_host(self._decode_chunk(bank, chunk_n))
                 for s in sched.absorb_chunk(toks_np):
                     self._pool_retire(sched, alloc, ctx, s)
                 refill()
@@ -669,12 +811,13 @@ class Engine:
         iteration carries every decoding slot's pending token and the next
         prefill chunks of admitted prompts; iterations with no prefill in
         flight run `decode_chunk` decode steps instead (the sequential
-        loops' fast path). Admission is by free pages, as `_serve_paged`."""
+        loops' fast path). Admission is by free pages, as `_serve_paged`;
+        chunked prefill starts at a prompt's first uncached token (`fed0`),
+        so a warm shared prefix skips its chunks."""
         b = self.sc.max_batch
-        dev = self.device
         sched = self._make_sched(requests, max_new_tokens, priorities, deadlines)
-        alloc, cache0 = self._paged_state()
-        ctx = _PoolCtx(cache0)
+        alloc, bank = self._paged_state()
+        ctx = _PoolCtx(bank.cache)
         budget = self.sc.token_budget or (b + self.sc.prefill_chunk)
         pchunk = max(1, min(self.sc.prefill_chunk, budget))
         chunk_n = max(1, min(self.sc.decode_chunk, max_new_tokens))
@@ -690,12 +833,24 @@ class Engine:
                         slot = v
                     else:
                         return
-                seq = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
-                if seq is None:
+                got = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
+                if got is None:
                     return
-                ctx.cache = self._set_tbl_row(ctx.cache, slot, alloc.table(seq))
-                sched.admit_request_prefilling(slot, req, fed0=0)
+                seq, cached = got
+                self._set_tbl_row(ctx.cache, slot, alloc.table(seq))
+                sched.admit_request_prefilling(
+                    slot, req, fed0=cached.n_tokens if cached is not None else 0)
                 ctx.seq_of[slot] = seq
+
+        def note_prefilled():
+            """Index prompts whose prefill just completed (their pages hold
+            valid KV from here on) so concurrent admissions match them."""
+            if not self._cache_on:
+                return
+            for s, sl in enumerate(sched.slots):
+                if sl.live and not sl.prefilling and s not in ctx.inserted:
+                    alloc.insert(ctx.seq_of[s], sl.prompt)
+                    ctx.inserted.add(s)
 
         def plan_grown() -> StepPlan:
             """Plan a packed step and materialize its pages; a victim
@@ -714,27 +869,32 @@ class Engine:
                     return plan
 
         def dispatch(plan: StepPlan) -> np.ndarray:
+            """The packed step (the reference's `_mixed_fn`), one graph per
+            pack length: the packer's arrays enter one static buffer."""
             arrays = pack_plan(plan, block_q, b)
-            tokens, seq_ids, positions, kv_len, last_rows = (
-                torch.as_tensor(a, device=dev) for a in arrays)
-            logits, ctx.cache = forward_packed(self.params, tokens, seq_ids, positions, kv_len,
-                                               ctx.cache, self.mc, last_rows, block_q=block_q)
-            return self._to_host(sample_token(logits, self._gen, self.sc))  # one sync per step
+            t = len(arrays[0])
+            pack = bank.buf(("pack", t), (3 * t + 2 * b,))
+            self._steps.put(pack, np.concatenate(arrays))
+            out = bank.buf("sampled", (b,))
+
+            def step():
+                tokens, seq_ids, positions = pack[:t], pack[t:2 * t], pack[2 * t:3 * t]
+                kv_len, last_rows = pack[3 * t:3 * t + b], pack[3 * t + b:]
+                logits, _ = forward_packed(self.params, tokens, seq_ids, positions, kv_len,
+                                           bank.cache, self.mc, last_rows, block_q=block_q)
+                out.copy_(sample_token(logits, self._gen, self.sc))
+
+            self._steps.run(bank.graphs, ("packed", t, block_q), step)
+            return self._to_host(out)  # one sync per step
 
         def decode_chunk_phase() -> np.ndarray:
-            """No prefill in flight: `chunk_n` decode steps, tok / pos rebuilt
+            """No prefill in flight: `chunk_n` decode steps, tok / pos staged
             from the scheduler's host state; dead slots' zeroed table rows
             send their lockstep writes to the garbage page."""
             self._grow_live(sched, alloc, ctx, chunk_n)
-            tok = torch.as_tensor([sl.pending for sl in sched.slots], dtype=torch.long, device=dev)
-            pos = torch.as_tensor([sl.kv for sl in sched.slots], dtype=torch.long, device=dev)
-            chunk = []
-            for _ in range(chunk_n):
-                logits, ctx.cache = self.api.decode_step(self.params, ctx.cache, tok, pos, self.mc)
-                tok = sample_token(logits, self._gen, self.sc)
-                pos = pos + 1
-                chunk.append(tok)
-            return self._to_host(torch.stack(chunk))  # one sync per chunk
+            self._steps.put(bank.state, [[sl.pending for sl in sched.slots],
+                                         [sl.kv for sl in sched.slots]])
+            return self._to_host(self._decode_chunk(bank, chunk_n))  # one sync per chunk
 
         try:
             try_admit()
@@ -753,6 +913,7 @@ class Engine:
                 else:
                     plan = plan_grown()
                     finished = sched.commit(plan, dispatch(plan)) if plan.segments else []
+                note_prefilled()
                 for s in finished:
                     self._pool_retire(sched, alloc, ctx, s)
                 try_admit()

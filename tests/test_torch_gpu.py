@@ -7,7 +7,9 @@ installed:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerances: O and Λ within 5e-5 in f32 (summation order only); bf16 O
-within 2e-2 (one bf16 rounding of |O| < 4); engine tokens identical.
+within 2e-2 (one bf16 rounding of |O| < 4); engine tokens identical, the
+engine's captured CUDA graphs against its eager steps too (with equal K2–K4
+launch counts and host syncs; a replayed step's logits within 1e-3).
 Gradients (K5) within rtol 1e-4 / atol 1e-5 in f32 — the reference's own
 kernel-vs-autodiff bound — and in bf16 within 2^-7 of the largest
 gradient entry (one bf16 rounding of the output, either way)."""
@@ -28,9 +30,16 @@ from repro_torch.kernels import flashd_decode as k2
 from repro_torch.kernels import flashd_fwd as k1
 from repro_torch.kernels import flashd_varlen as k4
 from repro_torch.data import DataConfig, SyntheticLM
-from repro_torch.models.transformer import apply_lm, init_lm
+from repro_torch.models.transformer import (
+    apply_lm,
+    decode_step_lm,
+    forward_packed,
+    init_decode_cache,
+    init_lm,
+)
 from repro_torch.serve import Engine, ServeConfig
 from repro_torch.serve.engine import pack_plan
+from repro_torch.serve.graphs import StepGraphs, launch_counts
 from repro_torch.serve.scheduler import Segment, StepPlan
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
 from repro_torch.tree import tree_leaves
@@ -888,3 +897,132 @@ def test_train_step_kernel_path_matches_plain(cuda, impl):
     upd = sum(float(((b - c) ** 2).sum()) for b, c in zip(tree_leaves(sp.params),
                                                           tree_leaves(state0.params))) ** 0.5
     assert dev <= 1e-3 * upd, (dev, upd)
+
+
+# ---- the serving steps as captured CUDA graphs ----
+
+GRAPH_LOOPS = {  # the cache off: a second serve() then runs the first one's steps again
+    "contiguous": dict(),
+    "paged": dict(kv_layout="paged", prefix_cache=False),
+    "mixed": dict(step_mode="mixed", page_size=8, prefix_cache=False),
+}
+
+
+def _served(eng, reqs, n_new):
+    """(tokens of two serve() calls and a generate(), K2–K4 launches, host syncs,
+    graphs captured by the second serve())."""
+    before = launch_counts()
+    first = eng.serve(reqs, n_new)
+    captured = eng._steps.captures
+    second = eng.serve(reqs, n_new)
+    again = eng._steps.captures - captured
+    gen = eng.generate(np.stack([r[:6] for r in reqs[:2]]), n_new)
+    launched = tuple(a - b for a, b in zip(launch_counts(), before))
+    return first, second, gen, launched, eng.host_syncs, again
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("loop", sorted(GRAPH_LOOPS))
+def test_captured_loops_match_eager(cuda, loop, dtype):
+    """Smoke widths: the captured steps give the eager steps' tokens (both
+    serve() calls and generate), the same K2–K4 launch counts and host
+    syncs, and a second serve() captures nothing new."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype=dtype)
+    params = init_lm(cfg, device=cuda, seed=4)
+    rng = np.random.default_rng(5)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (7, 37, 9, 30)]
+    sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, **GRAPH_LOOPS[loop])
+    captured = _served(Engine(params, cfg, sc, device=cuda), reqs, 8)
+    eager = _served(Engine(params, cfg, sc, device=cuda, graphs=False), reqs, 8)
+    for got, want in zip(captured[:3], eager[:3]):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert captured[3] == eager[3] and captured[3][1 if loop != "contiguous" else 0] > 0
+    assert captured[4] == eager[4]
+    assert captured[5] == 0 and eager[5] == 0
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_captured_decode_and_packed_steps_logits(cuda, layout):
+    """One decode step (K2 / K3) and one packed step (K4) as graph replays:
+    logits within 1e-3 of the same step run eagerly on the same inputs."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=6)
+    kw = dict(layout="paged", page_size=8, n_pages=17) if layout == "paged" else {}
+    cache = init_decode_cache(2, 64, cfg, device=cuda, **kw)
+    if layout == "paged":
+        for group in cache.values():
+            for leaves in group.values():
+                leaves["tbl"][:] = torch.arange(1, 17, device=cuda, dtype=torch.int32).reshape(2, 8)
+    steps = StepGraphs(cuda, graphs=True)
+    graphs, out = {}, {}
+    tok = torch.tensor([3, 9], device=cuda)
+    pos = torch.tensor([0, 0], device=cuda)
+    with torch.inference_mode():
+        for i in range(20):  # fill 20 positions, eagerly
+            pos.fill_(i)
+            decode_step_lm(params, cache, tok, pos, cfg)
+        pos.fill_(20)
+        want = decode_step_lm(params, cache, tok, pos, cfg)[0].clone()
+
+        def step():
+            out["decode"] = decode_step_lm(params, cache, tok, pos, cfg)[0]
+
+        for _ in range(3):  # warm-up + capture, then two replays
+            steps.run(graphs, "decode", step)
+        err = float((out["decode"] - want).abs().max())
+        print(f"captured decode step vs eager, {layout}: max |Δlogit| {err:.2e}")
+        assert err <= 1e-3
+        if layout != "paged":
+            return
+        plan = StepPlan(segments=(
+            Segment(slot=0, tokens=np.arange(1, 17, dtype=np.int32), start=21, emits=True),
+            Segment(slot=1, tokens=np.array([4], np.int32), start=21, emits=True)), n_tokens=17)
+        pack = [torch.as_tensor(a, device=cuda).long() for a in pack_plan(plan, 8, 2)]
+        want_p = forward_packed(params, *pack[:4], cache, cfg, pack[4], block_q=8)[0].clone()
+
+        def packed():
+            out["packed"] = forward_packed(params, *pack[:4], cache, cfg, pack[4], block_q=8)[0]
+
+        for _ in range(3):
+            steps.run(graphs, "packed", packed)
+        err = float((out["packed"] - want_p).abs().max())
+        print(f"captured packed step vs eager: max |Δlogit| {err:.2e}")
+        assert err <= 1e-3
+
+
+@pytest.mark.parametrize("mode", [dict(kv_layout="paged"), dict(step_mode="mixed")])
+def test_captured_prefix_cache_matches_cache_off(cuda, mode):
+    """Shared-prefix traffic, captured: the cache-on engine hits and gives
+    the cache-off engine's tokens, on a cold and a warm serve()."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=9)
+    rng = np.random.default_rng(10)
+    system = rng.integers(0, cfg.vocab_size, (24,)).astype(np.int32)
+    reqs = [np.concatenate([system, rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)])
+            for n in (3, 9, 5, 12)]
+    sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, page_size=8, **mode)
+    on = Engine(params, cfg, sc, device=cuda)
+    off = Engine(params, cfg, dataclasses.replace(sc, prefix_cache=False), device=cuda)
+    for _ in range(2):
+        for g, w in zip(on.serve(reqs, 6), off.serve(reqs, 6)):
+            np.testing.assert_array_equal(g, w)
+    assert on.stats()["hit_tokens"] > 0 and off.stats()["hit_tokens"] == 0
+    on._alloc.check()
+
+
+def test_captured_temperature_sampling_is_seed_deterministic(cuda):
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=7)
+    rng = np.random.default_rng(8)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (5, 12, 9)]
+    outs = []
+    for _ in range(2):
+        sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, temperature=1.0, seed=11,
+                         step_mode="mixed")
+        eng = Engine(params, cfg, sc, device=cuda)
+        outs.append(eng.serve(reqs, 10) + list(eng.generate(np.stack([r[:5] for r in reqs]), 6)))
+        assert eng._steps.captures > 0
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+        assert a.max() < cfg.vocab_size

@@ -143,21 +143,21 @@ def test_engine_sampling_is_seed_deterministic(model):
 
 def test_unported_serving_options_raise(model):
     _, _, tcfg, tp = model
-    # the paged pools refuse the prefix cache (A7) — on by default, as the reference
-    for kw, item in (({"kv_layout": "paged"}, "A7"), ({"step_mode": "mixed"}, "A7"),
-                     ({"kv_dtype": "int8"}, "A8"), ({"spec_tokens": 2}, "A9"),
+    for kw, item in (({"kv_dtype": "int8"}, "A8"), ({"spec_tokens": 2}, "A9"),
                      ({"fault_rate": 0.1}, "A10")):
         with pytest.raises(NotImplementedError, match=item):
             Engine(tp, tcfg, ServeConfig(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix_cache=False"):
-        Engine(tp, tcfg, ServeConfig(kv_layout="paged"), device="cpu")
+    # the paged pools take the reference's defaults, the prefix cache (A7) on
+    for kw in ({"kv_layout": "paged"}, {"step_mode": "mixed"}):
+        assert Engine(tp, tcfg, ServeConfig(**kw), device="cpu").stats()["prefix_cache_enabled"]
     with pytest.raises(NotImplementedError, match="A8"):
         Engine(tp, tcfg, ServeConfig(kv_layout="paged", prefix_cache=False, kv_dtype="int8"),
                device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         Engine(tp, tcfg, ServeConfig(), device="cpu").snapshot()
     # the contiguous loop ignores the prefix-cache flags, as the reference does
-    Engine(tp, tcfg, ServeConfig(prefix_cache=True), device="cpu")
+    assert not Engine(tp, tcfg, ServeConfig(prefix_cache=True),
+                      device="cpu").stats()["prefix_cache_enabled"]
 
 
 # ---- the paged and mixed loops ----

@@ -458,7 +458,8 @@ def test_mixed_pack_layout_matches_reference_packer(model, monkeypatch, max_batc
     forward = tengine.forward_packed
 
     def record_port(params, tokens, seq_ids, positions, kv_len, cache, cfg, last_rows, block_q):
-        got.append([a.numpy() for a in (tokens, seq_ids, positions, kv_len, last_rows)]
+        # copies: the engine packs into static buffers that the next step rewrites
+        got.append([a.numpy().copy() for a in (tokens, seq_ids, positions, kv_len, last_rows)]
                    + [block_q])
         return forward(params, tokens, seq_ids, positions, kv_len, cache, cfg, last_rows,
                        block_q=block_q)

@@ -70,7 +70,29 @@ non-zero:
  13. the lifecycle at full width and 2 layers: `train_resilient` with a
      scheduled `grad_step` fault gives the clean run's loss curve bit for
      bit, and the restored checkpoint serves the in-memory weights' tokens;
- 14. the kernels line (JSON), then the result line (JSON).
+ 15. the quantized pool (`kv_dtype` int8 and fp8) at full width, f32: phase
+     9's requests through the paged and the mixed loops, captured (K3 / K4
+     launched), and captured = eager (tokens, launches, host syncs) on the
+     4 shortest requests; the sequential and packed write paths fed the
+     same K/V rows store byte-equal pages and scales (an identity-weight
+     layer, so the packed step's K/V are its rows); K3 and K4 on the pages
+     the engines wrote against their plain versions; teacher-forced, the
+     kernel path's log-probabilities on a byte pool within 0.1 of the
+     plain path's (the reference's int8 drift bound). A byte pool rounds
+     ulp-level differences of K/V (summation order, the GEMMs' row counts)
+     into whole codes now and then, so token streams of the kernel and
+     plain paths, of the two loops and of other batches are compared and
+     printed, not required equal; so is the share of equal bytes in the
+     two loops' pools. kv_bytes_per_token; K3 / K4 device time on int8 and
+     fp8 pools beside native, and K4 on a verify pack;
+ 16. speculative decoding (`spec_tokens` 4) in the paged and mixed loops
+     with a self-draft (acceptance 1.0), `OracleDraft` at accuracy 0.5 and
+     a draft model of the target's first 2 layers (K2 proposals): tokens
+     equal the non-speculative run's, the allocator consistent; once more
+     on an int8 pool, its streams compared with phase 15's int8 run;
+     acceptance, tokens per round, tok/s against phase 9's
+     non-speculative run, K2 / K3 / K4 launches;
+ 14. (last) the kernels line (JSON), then the result line (JSON).
 
 It exits with code 2, printing no result, when no CUDA device is visible
 or when the port's sources are not beside it.
@@ -149,8 +171,48 @@ def _device_ms(fn, flush, reps: int = 20) -> float:
                if e.device_type == DeviceType.CUDA and "FillFunctor<int>" not in e.key) / reps / 1e3
 
 
+def _graph_ms(fn, flush, reps: int = 20, rounds: int = 7) -> float:
+    """Device time of `fn` per call without the host's launch cost: `reps`
+    calls, each after an L2 flush, captured in one CUDA graph, against the
+    flushes alone captured the same way; the median over `rounds` pairs of
+    replays (CUDA events) of the difference, per call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graphs = []
+    for with_fn in (True, False):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                flush.zero_()
+                if with_fn:
+                    fn()
+        graphs.append(g)
+
+    def replay_ms(g):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    diffs = sorted(replay_ms(graphs[0]) - replay_ms(graphs[1]) for _ in range(rounds))
+    return diffs[rounds // 2] / reps
+
+
 def _err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def _agreement(a, b) -> str:
+    """Two runs' token streams: how many are equal, and where the others part."""
+    parts = [next((i for i, (x, y) in enumerate(zip(u, w)) if x != y), None) for u, w in zip(a, b)]
+    n_eq = sum(p is None for p in parts)
+    where = [p for p in parts if p is not None]
+    return f"{n_eq}/{len(parts)} streams equal" + (f", the others part at tokens {where}"
+                                                    if where else "")
 
 
 def _cuobjdump(nvcc: str) -> str:
@@ -232,16 +294,21 @@ class _Phase:
 
 def _paged_pool(gen, dev, lengths, n_tbl, page, hkv, d, dtype):
     """A pool of distinct shuffled pages with page 0 — where every table slot
-    past a row's live pages points — filled with NaN (an int8 pool: NaN
-    scales on page 0). Returns (k_pages, v_pages, tbl, k_scale, v_scale)."""
+    past a row's live pages points — filled with NaN (a byte pool, int8 or
+    fp8 e4m3: NaN scales on page 0). Returns (k_pages, v_pages, tbl,
+    k_scale, v_scale)."""
     import torch
 
     n_pages = len(lengths) * n_tbl + 1
     shape = (n_pages, page, hkv, d)
     ks = vs = None
-    if dtype == torch.int8:
-        kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
-        vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    if dtype in (torch.int8, torch.float8_e4m3fn):
+        if dtype == torch.int8:
+            kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        else:  # codes across e4m3's range
+            kp, vp = ((torch.randn(shape, generator=gen, device=dev) * 100).clamp(-448, 448)
+                      .to(dtype) for _ in range(2))
         ks = torch.rand(n_pages, hkv, generator=gen, device=dev) / 64 + 1e-3
         vs = torch.rand(n_pages, hkv, generator=gen, device=dev) / 64 + 1e-3
         ks[0] = vs[0] = float("nan")
@@ -878,6 +945,7 @@ def main() -> int:
     ph = _Phase()
     pool_report = []
     pool_launches = {"flashd_decode_paged": 0, "flashd_varlen": 0}
+    pool_tps = {}  # captured tok/s per loop, beside phase 16's speculative runs
 
     def pool_serve(eng, requests):
         """One serve() of a paged or mixed engine: tokens, seconds, TTFT, and
@@ -912,6 +980,7 @@ def main() -> int:
         out["plain"] = pool_serve(Engine(params, plain_cfg, psc, device=dev), reqs)
         assert counts() == seen, f"{mode}: the plain path launched a kernel"
         k, e = out["captured"], out["eager"]
+        pool_tps[mode] = n_serve / k["s"]
         assert k["launched"] == e["launched"] and k["syncs"] == e["syncs"], (mode, k, e)
         for a, b_, c, d_ in zip(k["toks"], e["toks"], out["plain"]["toks"], kern["serve"]):
             assert np.array_equal(a, b_), f"{mode}: captured and eager tokens differ"
@@ -1254,6 +1323,306 @@ def main() -> int:
               f"(step {extra['data_step']}, {ck_bytes / 2**30:.2f} GiB on disk at the end) "
               f"restored into serve.Engine gives the in-memory weights' 2x16 greedy tokens {ph}")
 
+    # ---- 15. the quantized pool (A8): int8 and fp8 through the paged and mixed loops ----
+    ph = _Phase()
+    from repro_torch.models.transformer import _packed_attn, _paged_attn_step
+    from repro_torch.runtime import quant
+
+    short = [reqs[i] for i in sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:4]]
+    quant_report, quant_launches, quant_toks, quant_engines = [], {}, {}, {}
+    for kv in ("int8", "fp8"):
+        for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
+            qsc = ServeConfig(max_batch=4, max_len=512, kv_dtype=kv, **kw)
+            eng = Engine(params, cfg, qsc, device=dev)
+            reset_counts()  # this path's main-path run (captured steps) starts here
+            run = pool_serve(eng, reqs)
+            got = (k2.paged_launches, k4.launches)
+            assert got[0] > 0 and (got[1] > 0) == (mode == "mixed"), (kv, mode, got)
+            quant_launches[kv, mode] = got
+            seen = counts()
+            plain_run = pool_serve(Engine(params, plain_cfg, qsc, device=dev), reqs)
+            assert counts() == seen, f"{kv} {mode}: the plain path launched a kernel"
+            # kernel and plain attention differ by summation order (≤ 5e-5); on a
+            # byte pool that can move a later layer's K/V across a rounding edge,
+            # so the streams are compared (and held teacher-forced below)
+            vs_plain = _agreement(run["toks"], plain_run["toks"])
+            # the eager oracle on the 4 shortest requests (fresh engines, both)
+            cap = pool_serve(Engine(params, cfg, qsc, device=dev), short)
+            eag = pool_serve(Engine(params, cfg, qsc, device=dev, graphs=False), short)
+            assert cap["launched"] == eag["launched"] and cap["syncs"] == eag["syncs"], \
+                (kv, mode, cap["launched"], eag["launched"])
+            for a, b_ in zip(cap["toks"], eag["toks"]):
+                assert np.array_equal(a, b_), f"{kv} {mode}: captured and eager tokens differ"
+            by_req = {id(r): t for r, t in zip(reqs, run["toks"])}
+            vs_8 = _agreement(cap["toks"], [by_req[id(r)] for r in short])
+            qst = run["stats"]
+            assert qst["kv_dtype"] == kv and eng._paged.cache["blocks"]["pos0"]["k_pages"].dtype \
+                == quant.get_spec(kv).dtype
+            eng._alloc.check(eng._paged.cache)
+            quant_toks[kv, mode], quant_engines[kv, mode] = run["toks"], eng
+            quant_report.append(
+                f"{kv} {mode}: captured {n_serve / run['s']:.1f} tok/s, mean TTFT "
+                f"{run['ttft'] * 1e3:.1f} ms (eager oracle on 4 requests {cap['launched'][1:]} = "
+                f"{eag['launched'][1:]} K3/K4 launches, {cap['syncs']} = {eag['syncs']} syncs, "
+                f"tokens equal; against the same requests in the 8-request run: {vs_8}); "
+                f"kernel vs plain tokens {vs_plain}; vs the native pool's "
+                f"{_agreement(run['toks'], kern['serve'])}; kv_bytes_per_token "
+                f"{qst['kv_bytes_per_token']:.1f} (page {eng._page_layout.page_size}, "
+                f"{eng._page_layout.n_pages} pages)")
+        quant_report.append(f"{kv} paged vs mixed tokens "
+                            f"{_agreement(quant_toks[kv, 'paged'], quant_toks[kv, 'mixed'])}")
+    # teacher-forced: the 4 shortest requests' prompt + paged-loop tokens, one
+    # decode step a position on a page-64 pool, the kernel path on a byte pool
+    # against the plain path on the same format (the drift a summation order
+    # causes through the rounding) and against the native pool (the format's
+    # own drift); max |Δ log p| over the vocab, the reference's int8 bound 0.1
+    # (tests/test_quant.py::test_logprob_drift_bound)
+    drift = {}
+    for kv in ("int8", "fp8"):
+        streams = [np.concatenate([r, t_]) for r, t_ in zip(reqs, quant_toks[kv, "paged"])
+                   if any(r is x for x in short)]
+        n_f = min(map(len, streams))
+        streams = torch.as_tensor(np.stack([x[:n_f] for x in streams]), device=dev).long()
+        n_tf = -(-n_f // 64)
+        caches = {}
+        for key, fmt in (("kernel", kv), ("plain", kv), ("native", "")):
+            fc = init_decode_cache(4, n_tf * 64, cfg, layout="paged", page_size=64,
+                                   n_pages=4 * n_tf + 1, kv_dtype=fmt, device=dev)
+            for group in fc.values():
+                for lv in group.values():
+                    lv["tbl"][:] = torch.arange(1, 4 * n_tf + 1, dtype=torch.int32,
+                                                device=dev).reshape(4, n_tf)
+            caches[key] = fc
+        d_plain = d_native = 0.0
+        with torch.inference_mode():
+            for t_ in range(n_f):
+                at_ = torch.full((4,), t_, device=dev)
+                lp = {key: torch.log_softmax(decode_step_lm(
+                    params, fc, streams[:, t_], at_, plain_cfg if key == "plain" else cfg)[0]
+                    [:, :cfg.vocab_size], -1) for key, fc in caches.items()}
+                d_plain = max(d_plain, _err(lp["kernel"], lp["plain"]))
+                d_native = max(d_native, _err(lp["kernel"], lp["native"]))
+        del caches
+        assert d_plain <= 0.1, (kv, "kernel vs plain log p drift", d_plain)
+        drift[kv] = (n_f, d_plain, d_native)
+    native_bpt = 2 * cfg.n_layers * hkv * d * 4  # f32 pages, no scales
+    # the write paths on the same rows: an identity-weight attn_nope layer at
+    # full width (Hq = Hkv = 8, d 128, d_model 1024), two sequences of 200
+    # positions of rising magnitude (later rows of a page saturate), one
+    # position a step through _paged_attn_step (K3) against packs of chunks
+    # through _packed_attn (K4); every mapped page byte-equal
+    icfg = dataclasses.replace(cfg, n_heads=hkv, n_kv_heads=hkv, d_model=hkv * d,
+                               qk_norm=False, pattern=(("attn_nope", "swiglu"),))
+    eye = torch.eye(hkv * d, device=dev)
+    ip = {n: eye for n in ("wq", "wk", "wv", "wo")}
+    wpage, wn, wtbl_n = quant_engines["int8", "paged"]._page_layout.page_size, 200, 4
+    n_wp = 2 * wtbl_n + 1
+    wtbl = (torch.randperm(n_wp - 1, generator=gen, device=dev) + 1).reshape(2, wtbl_n)
+    wtbl = wtbl.to(torch.int32)
+    wx = torch.randn(2, wn, hkv * d, generator=gen, device=dev)
+    wx *= torch.linspace(0.5, 3.0, wn, device=dev)[None, :, None]
+    write_eq = {}
+    with torch.inference_mode():
+        for kv in ("int8", "fp8"):
+            dt = quant.get_spec(kv).dtype
+            pools = []
+            for _ in range(2):
+                pools.append({"k_pages": torch.zeros(n_wp, wpage, hkv, d, dtype=dt, device=dev),
+                              "v_pages": torch.zeros(n_wp, wpage, hkv, d, dtype=dt, device=dev),
+                              "tbl": wtbl.clone(), "k_scale": torch.ones(n_wp, hkv, device=dev),
+                              "v_scale": torch.ones(n_wp, hkv, device=dev)})
+            seq, pk = pools
+            for t_ in range(wn):
+                kt = wx[:, t_].reshape(2, 1, hkv, d)
+                _paged_attn_step(kt, kt, kt, icfg, seq, torch.full((2,), t_, device=dev))
+            for lo, hi in ((0, 37), (37, 38), (38, 130), (130, 200)):
+                plan = StepPlan(segments=tuple(
+                    Segment(slot=s_, tokens=np.zeros(hi - lo, np.int32), start=lo, emits=True)
+                    for s_ in range(2)), n_tokens=2 * (hi - lo))
+                _, psid_np, pos_np, kvl_np, _ = pack_plan(plan, 8, 2)
+                rows_x = torch.zeros(len(psid_np), hkv * d, device=dev)
+                for s_ in range(2):
+                    rows_x[torch.as_tensor(psid_np == s_, device=dev)] = wx[s_, lo:hi]
+                _packed_attn(ip, rows_x[None], icfg, "attn_nope", pk,
+                             torch.as_tensor(pos_np, device=dev).long(),
+                             torch.as_tensor(psid_np, device=dev).long(),
+                             torch.as_tensor(kvl_np, device=dev).long(), 8)
+            wlive = wtbl.flatten().long()
+            for leaf in ("k_pages", "v_pages", "k_scale", "v_scale"):
+                a_, b_ = seq[leaf][wlive], pk[leaf][wlive]
+                if a_.element_size() == 1:
+                    a_, b_ = a_.view(torch.uint8), b_.view(torch.uint8)
+                assert torch.equal(a_, b_), f"{kv}: {leaf} differs between the write paths"
+            write_eq[kv] = True
+    # the two loops' pools: the share of equal bytes on the pages of each
+    # cached chain (the loops' GEMMs see different row counts, so their f32
+    # K/V rows may differ in the last bits before quantization)
+    pool_eq = {}
+    for kv in ("int8", "fp8"):
+        a_eng, b_eng = quant_engines[kv, "paged"], quant_engines[kv, "mixed"]
+        eq = tot = 0
+        for chain in a_eng._alloc.cached_chains():
+            ma = a_eng._alloc.match_prefix(np.asarray(chain))
+            mb = b_eng._alloc.match_prefix(np.asarray(chain))
+            n_ = min(len(ma.pages), len(mb.pages))
+            if n_ == 0:
+                continue
+            pa, pb = (torch.tensor(m_.pages[:n_], device=dev) for m_ in (ma, mb))
+            for leaf in ("k_pages", "v_pages"):
+                xa = a_eng._paged.cache["blocks"]["pos0"][leaf][:, pa].view(torch.uint8)
+                xb = b_eng._paged.cache["blocks"]["pos0"][leaf][:, pb].view(torch.uint8)
+                eq += int((xa == xb).sum())
+                tot += xa.numel()
+        pool_eq[kv] = eq / max(tot, 1)
+    # K3 and K4 on the pages the engines wrote (layers 0 and 27), through the
+    # allocator's tables: 4 cached chains; K3 decode rows, K4 5-row verify segments
+    engine_err = {}
+    for kv in ("int8", "fp8"):
+        eng = quant_engines[kv, "paged"]
+        chains = sorted(eng._alloc.cached_chains(), key=len)[-4:]
+        tabs = [eng._alloc.match_prefix(np.asarray(c)).pages for c in chains]
+        lens = [len(t_) * eng._page_layout.page_size for t_ in tabs]
+        etbl = torch.zeros(len(tabs), eng._page_layout.pages_per_seq, dtype=torch.int32,
+                           device=dev)
+        for i, t_ in enumerate(tabs):
+            etbl[i, :len(t_)] = torch.tensor(t_, dtype=torch.int32)
+        ecl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        vplan = StepPlan(segments=tuple(
+            Segment(slot=i, tokens=np.zeros(5, np.int32), start=n_ - 5, emits=True)
+            for i, n_ in enumerate(lens)), n_tokens=5 * len(lens))
+        _, psid_np, pos_np, _, _ = pack_plan(vplan, 8, len(lens))
+        esid, epos = (torch.as_tensor(x, device=dev) for x in (psid_np, pos_np))
+        err = 0.0
+        for layer in (0, cfg.n_layers - 1):
+            lv = {n: eng._paged.cache["blocks"]["pos0"][n][layer]
+                  for n in ("k_pages", "v_pages", "k_scale", "v_scale")}
+            sc_kw = dict(k_scale=lv["k_scale"], v_scale=lv["v_scale"])
+            qd = torch.randn(len(lens), hq, d, generator=gen, device=dev)
+            err = max(err, _err(k2.flashd_decode_paged(qd, lv["k_pages"], lv["v_pages"], etbl,
+                                                       ecl, **sc_kw),
+                                k2.flashd_decode_paged_plain(qd, lv["k_pages"], lv["v_pages"],
+                                                             etbl, ecl, **sc_kw)))
+            qv = torch.randn(len(psid_np), hq, d, generator=gen, device=dev)
+            ov = k4.flashd_varlen(qv, lv["k_pages"], lv["v_pages"], etbl, esid, epos, ecl,
+                                  block_q=8, **sc_kw)
+            err = max(err, _err(ov, k4.flashd_varlen_plain(qv, lv["k_pages"], lv["v_pages"],
+                                                           etbl, esid, epos, ecl, block_q=8,
+                                                           **sc_kw)))
+            assert torch.isfinite(ov).all()
+        assert err <= F32_TOL, (kv, "kernels on the engine's pages", err)
+        engine_err[kv] = err
+    k3_err = max(k3_err, *engine_err.values())
+    k4_err = max(k4_err, *engine_err.values())
+    del quant_engines, eng, a_eng, b_eng
+    # device time on byte pools beside native, at phase 7's and 8's shapes:
+    # K3 at B 4 × max_len 512 (pages of 64, full caches), K4 on the mixed-step
+    # pack and on a verify pack (4 slots × K + 1 = 5 rows at the spec block_q)
+    qbytes = {"f32": (torch.float32, 4), "int8": (torch.int8, 1), "fp8": (torch.float8_e4m3fn, 1)}
+    spec_bq = choose_varlen_blocks(bucket_pow2(4 * 5, lo=8), d, d, group=hq // hkv, page=64,
+                                   segment_hint=5).block_q
+    vplan = StepPlan(segments=tuple(
+        Segment(slot=i, tokens=np.zeros(5, np.int32), start=st_, emits=True)
+        for i, st_ in enumerate((150, 221, 300, 400))), n_tokens=20)
+    packs = {"mixed": pack_plan(mixed_plan, mixed_bq, 4) + (mixed_bq,),
+             "verify": pack_plan(vplan, spec_bq, 4) + (spec_bq,)}
+    # timed as graph replays (`_graph_ms`): torch.profiler's sums this late in
+    # the run, after the serving phases' graphs, came out below the byte bound
+    q_t, q_bound = {}, {}
+    for name, (dt, size) in qbytes.items():
+        kp, vp, tbl, ks, vs = _paged_pool(gen, dev, [max_len] * be, max_len // 64, 64, hkv, d, dt)
+        sc_kw = {} if ks is None else dict(k_scale=ks, v_scale=vs)
+        side = 0 if ks is None else 2 * 4 * hkv  # scales of a page, K and V
+        q_t["K3", name] = _graph_ms(lambda: k2.flashd_decode_paged(qe, kp, vp, tbl, cle3,
+                                                                      **sc_kw), flush)
+        n_live = be * max_len
+        q_bound["K3", name] = _bytes_bound(2 * n_live * hkv * d * size + n_live // 64 * side
+                                           + 2 * be * hq * d * 4, 4 * d * n_live * hq)
+        for pname, (_, psid_np, qpos_np, kvl_np, _, bq) in packs.items():
+            sid_, qp_, kvl_ = (torch.as_tensor(x, device=dev) for x in (psid_np, qpos_np, kvl_np))
+            kp4_, vp4_, tbl4_, ks4, vs4 = _paged_pool(gen, dev, kvl_np.tolist(), max_len // 64,
+                                                      64, hkv, d, dt)
+            sc4 = {} if ks4 is None else dict(k_scale=ks4, v_scale=vs4)
+            qv = torch.randn(len(psid_np), hq, d, generator=gen, device=dev)
+            fn = lambda qv=qv, a=(kp4_, vp4_, tbl4_, sid_, qp_, kvl_), bq=bq, sc4=sc4: \
+                k4.flashd_varlen(qv, *a, block_q=bq, **sc4)
+            o4 = fn()
+            assert _err(o4, k4.flashd_varlen_plain(qv, kp4_, vp4_, tbl4_, sid_, qp_, kvl_,
+                                                   block_q=bq, **sc4)) <= F32_TOL, (pname, name)
+            q_t["K4 " + pname, name] = _graph_ms(fn, flush)
+            rows_ = int((qp_ >= 0).sum())
+            live_ = sum(int(kvl_np[sl]) for sl in set(psid_np[psid_np >= 0].tolist()))
+            vis_ = sum(min(int(kvl_np[s_]), int(p_) + 1)  # (row, key) pairs the pack needs
+                       for s_, p_ in zip(psid_np, qpos_np) if p_ >= 0)
+            q_bound["K4 " + pname, name] = _bytes_bound(
+                2 * live_ * hkv * d * size + -(-live_ // 64) * side + 2 * rows_ * hq * d * 4,
+                4 * d * hq * vis_)
+    q_times = "; ".join(f"{k_} {n_} device {v_ * 1e3:.2f} us (bound {q_bound[k_, n_] * 1e3:.2f} us)"
+                        for (k_, n_), v_ in q_t.items())
+    _line(15, f"quantized pool, qwen3-0.6b f32 full width, phase 9's 8 requests, 32 new, "
+              f"max_batch 4, max_len 512: {'; '.join(quant_report)}; teacher-forced max "
+              f"|Δ log p| (4 streams, positions, kernel vs plain on the same format, kernel vs "
+              f"native; bound 0.1 on the first): "
+              + "; ".join(f"{kv} {n_} positions {a_:.2e}, {b_:.2e}"
+                          for kv, (n_, a_, b_) in drift.items())
+              + f"; native f32 pages "
+              f"{native_bpt} B/token; K3/K4 launches on the main paths {quant_launches}; write "
+              f"paths byte-equal on the same rows (page {wpage}, 2 x {wn} positions, K3 steps "
+              f"vs K4 packs): {write_eq}; equal bytes between the paged and the mixed loops' "
+              f"pools on shared chains {pool_eq}; K3/K4 on the engines' pages vs plain max|Δ| "
+              f"{engine_err} (bound {F32_TOL}); device time (graph replays, L2 flushed): "
+              f"{q_times} {ph}")
+
+    # ---- 16. speculative decoding (A9): K + 1-row verify through K4 ----
+    ph = _Phase()
+    from repro_torch.serve.speculative import OracleDraft
+    from repro_torch.tree import tree_map
+
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    dparams = dict(params, blocks=tree_map(lambda x: x[:2], params["blocks"]))
+    spec_report, spec_launches = [], {"flashd_decode": 0, "flashd_decode_paged": 0,
+                                      "flashd_varlen": 0}
+    cases = [("self-draft", "", lambda: (params, cfg)),
+             ("oracle 0.5", "", lambda: OracleDraft(reqs, kern["serve"], cfg.vocab_size,
+                                                    accuracy=0.5, seed=0)),
+             ("2-layer draft", "", lambda: (dparams, dcfg))]
+    for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
+        mode_cases = cases + [("oracle 0.5 int8", "int8", lambda m=mode: OracleDraft(
+            reqs, quant_toks["int8", m], cfg.vocab_size, accuracy=0.5, seed=0))]
+        for name, kv, mk in mode_cases:
+            ssc = ServeConfig(max_batch=4, max_len=512, spec_tokens=4, kv_dtype=kv, **kw)
+            eng = Engine(params, cfg, ssc, device=dev, draft=mk())
+            reset_counts()  # this path's main-path run (captured steps) starts here
+            run = pool_serve(eng, reqs)
+            got = {"flashd_decode": k2.launches, "flashd_decode_paged": k2.paged_launches,
+                   "flashd_varlen": k4.launches}
+            assert got["flashd_varlen"] > 0, (mode, name, got)
+            assert (got["flashd_decode"] > 0) == ("draft" in name), (mode, name, got)
+            for key in got:
+                spec_launches[key] += got[key]
+            if kv:  # against the int8 non-speculative run: a verify step's GEMMs see
+                # other row counts than a decode step's, so its K/V may round to
+                # other codes (phase 15); the streams are compared
+                same = f"tokens vs the int8 run {_agreement(run['toks'], quant_toks['int8', mode])}"
+            else:
+                for a, b_ in zip(run["toks"], kern["serve"]):
+                    assert np.array_equal(a, b_), f"{mode} {name}: speculative tokens differ"
+                same = "tokens equal"
+            sst = run["stats"]
+            if name == "self-draft":
+                assert sst["spec_acceptance_rate"] == 1.0, sst["spec_acceptance_rate"]
+            spec_report.append(
+                f"{mode} {name}: {same}; acceptance {sst['spec_acceptance_rate']:.3f}, "
+                f"{sst['spec_mean_accepted']:.2f} accepted a verify segment "
+                f"({sst['spec_rounds']} segments, {sst['host_syncs']} host syncs), "
+                f"{n_serve / run['s']:.1f} tok/s (non-speculative, phase 9: "
+                f"{pool_tps[mode]:.1f}), mean TTFT {run['ttft'] * 1e3:.1f} ms, launches "
+                f"K2/K3/K4 {tuple(got.values())}, graphs {run['captures']}")
+            del eng
+    _line(16, f"speculative decoding, spec_tokens 4, qwen3-0.6b f32 full width, phase 9's 8 "
+              f"requests, 32 new, captured; native pools: tokens equal the non-speculative "
+              f"run, allocator consistent: {'; '.join(spec_report)}; launches {spec_launches} "
+              f"{ph}")
+
     # ---- 14. kernels line, result line ----
     kernels = [
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
@@ -1323,6 +1692,21 @@ def main() -> int:
                   f"turns: {k1_turn_ms:.4f} ms f32, {best['K1', 'bf16']:.4f} ms bf16)"},
     ]
     kernels[0]["train_launches"] = train_launches["flashd_fwd"]
+    # phases 15 and 16: launches on the quantized and speculative main paths,
+    # device time on byte pools (bounds at 1 B/element plus the page scales)
+    kernels[1]["spec_launches"] = spec_launches["flashd_decode"]
+    for row, key in ((kernels[2], "K3"), (kernels[3], "K4 mixed")):
+        for kv in ("int8", "fp8"):
+            row[f"{kv}_device_ms"] = q_t[key, kv]
+            row[f"{kv}_bound_ms"] = q_bound[key, kv]
+        row["native_device_ms_beside_byte_pools"] = q_t[key, "f32"]
+    kernels[2]["quantized_launches"] = sum(v[0] for v in quant_launches.values())
+    kernels[3]["quantized_launches"] = sum(v[1] for v in quant_launches.values())
+    kernels[2]["spec_launches"] = spec_launches["flashd_decode_paged"]
+    kernels[3]["spec_launches"] = spec_launches["flashd_varlen"]
+    for kv in ("f32", "int8", "fp8"):
+        kernels[3][f"verify_{kv}_device_ms"] = q_t["K4 verify", kv]
+        kernels[3][f"verify_{kv}_bound_ms"] = q_bound["K4 verify", kv]
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

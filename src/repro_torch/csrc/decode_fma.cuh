@@ -8,9 +8,10 @@
 // K4): row `pos` is at tbl[pos / page], offset pos % page. The table is
 // read only for the rows the caller asks for, so a slot past a sequence's
 // live pages (the garbage page 0, which may hold anything) is never
-// followed. An int8 pool is staged as bytes with one f32 scale per (page,
-// kv head) beside each row, and dequantized when a lane reads it (x·scale,
-// the reference's order), before the scores or P·V use it.
+// followed. A byte pool (int8, or fp8 e4m3) is staged as bytes with one f32
+// scale per (page, kv head) beside each row, and dequantized when a lane
+// reads it (x·scale, the reference's order), before the scores or P·V use
+// it.
 //
 // The design keeps HBM busy (one query row per head: bytes bound decode):
 //   - every live K and V row is staged with 16-byte cp.async copies, all
@@ -18,7 +19,7 @@
 //     longer than one chunk), so a CTA's whole run is in flight;
 //   - scores: a row of d elements is LPR lanes × 16 bytes of q (4 f32 or 8
 //     bf16 a lane; the K row's matching VEC elements, 4 or 8 bytes of an
-//     int8 pool), RPW = 32/LPR rows per warp at a time, each dot product
+//     byte pool), RPW = 32/LPR rows per warp at a time, each dot product
 //     reduced by shuffles over its row's lanes and read once for all GC
 //     query rows; P·V: the same rows per warp, VEC columns a lane into
 //     GC×VEC registers, summed over the warp's rows by shuffles and over the
@@ -26,6 +27,8 @@
 //   - chunks of one run are blended in order into the carry, so two calls
 //     on the same inputs are bitwise equal.
 #pragma once
+
+#include <cuda_fp8.h>
 
 #include <cstdint>
 
@@ -74,7 +77,7 @@ __device__ __forceinline__ void unpack16(const uint4& u, float (&f)[8]) {
 }
 
 // VEC elements at p (shared memory) as floats: 16 bytes of f32 or bf16,
-// 4 or 8 bytes of int8
+// 4 or 8 bytes of int8 or fp8 (e4m3)
 __device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
   unpack16(*reinterpret_cast<const uint4*>(p), f);
 }
@@ -95,11 +98,30 @@ __device__ __forceinline__ void load_vec(const signed char* p, float (&f)[8]) {
   char4_to(*reinterpret_cast<const char4*>(&w.x), f);
   char4_to(*reinterpret_cast<const char4*>(&w.y), f + 4);
 }
+// four e4m3 bytes (the lowest address in the low byte) → floats, exactly:
+// e4m3 → half (every e4m3 value is a half) → float
+__device__ __forceinline__ void fp8x4_to(const uint32_t w, float* f) {
+  const __half2_raw lo = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w & 0xffffu), __NV_E4M3);
+  const __half2_raw hi = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w >> 16), __NV_E4M3);
+  const float2 a = __half22float2(__half2(lo)), b = __half22float2(__half2(hi));
+  f[0] = a.x;
+  f[1] = a.y;
+  f[2] = b.x;
+  f[3] = b.y;
+}
+__device__ __forceinline__ void load_vec(const __nv_fp8_e4m3* p, float (&f)[4]) {
+  fp8x4_to(*reinterpret_cast<const uint32_t*>(p), f);
+}
+__device__ __forceinline__ void load_vec(const __nv_fp8_e4m3* p, float (&f)[8]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  fp8x4_to(w.x, f);
+  fp8x4_to(w.y, f + 4);
+}
 
 // Where the K and V rows of one (sequence, kv head) live. Contiguous: k / v
 // point at position 0 and row `pos` is pos·ss further. Paged: k / v point at
 // the pool plus the kv head's offset, `tbl` at the sequence's block-table
-// row, and row `pos` is at page tbl[pos / page], offset pos % page; an int8
+// row, and row `pos` is at page tbl[pos / page], offset pos % page; a byte
 // pool's scales `ks` / `vs` point at (page 0, this kv head), page stride hkv.
 template <typename TKV, bool PAGED>
 struct KVSrc {
@@ -115,7 +137,7 @@ struct KVSrc {
 };
 
 // rows [pos0, pos0 + nr) of K (or V) into an unpadded shared tile [nr][HD],
-// one 16-byte asynchronous copy each; an int8 pool's row scales into dsc
+// one 16-byte asynchronous copy each; a byte pool's row scales into dsc
 template <typename TKV, int HD, bool PAGED>
 __device__ __forceinline__ void stage_rows(TKV* dst, float* dsc, const TKV* base, long long ss,
                                            long long sp, const float* scales,
@@ -148,7 +170,7 @@ struct Smem {
     w = stat + sizeof(float) * 4 * gc;              // λ_c, c, -, blend weight: [4][gc]
     lamp = w + sizeof(float) * MERGE_CH * gc;       // merge weights: [MERGE_CH][gc]
     sc = lamp + sizeof(float) * MERGE_CH * gc;      // the partials' λ: [MERGE_CH][gc]
-    flag = sc + sizeof(float) * nst * 2 * rows;     // int8 row scales: [nst][2][rows]
+    flag = sc + sizeof(float) * nst * 2 * rows;     // byte-pool row scales: [nst][2][rows]
     total = flag + 16;
   }
 };

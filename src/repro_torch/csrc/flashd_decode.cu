@@ -32,9 +32,10 @@
 //     its DMA descriptors (scalar prefetch), here the copying thread reads
 //     the entry — only for live rows, so table slots past the live range
 //     (the engine parks them on the garbage page 0, which may hold
-//     anything) are never followed. An int8 pool is staged as bytes with
-//     its (page, kv head) scale beside each row and dequantized as a lane
-//     reads it (x·scale, the reference's order), before the scores;
+//     anything) are never followed. A byte pool (int8 or fp8 e4m3) is
+//     staged as bytes with its (page, kv head) scale beside each row and
+//     dequantized as a lane reads it (x·scale, the reference's order),
+//     before the scores;
 //   - fused, each CTA counts itself into a per-(b, kv head) arrival
 //     counter after its partial is visible; the last to arrive blends all
 //     n_splits partials in split order and writes O (and Λ). Which CTA
@@ -71,7 +72,7 @@ struct Args {
   const int* tbl;        // K3: [B, N] block table
   long long tbl_sb;
   int page;
-  const float* ks;       // K3 with an int8 pool: [P, Hkv] f32 scales; else null
+  const float* ks;       // K3 with a byte pool: [P, Hkv] f32 scales; else null
   const float* vs;
 };
 
@@ -285,8 +286,8 @@ extern "C" int flashd_decode_launch(
 // [P, page, Hkv, d] (element strides k_sp, k_ss, k_sh), split over
 // n_splits runs of `split` positions of S_max = n_tbl·page, merged in split
 // order into o [B, Hq, hd] (q's dtype). q_type / kv_type: 0 float32,
-// 1 bfloat16, 2 int8 (then ks / vs [P, Hkv] f32 are the per-(page, head)
-// scales; null otherwise). o_part / lam_part are scratch [n_splits, B, Hq,
+// 1 bfloat16, 2 int8, 3 fp8 e4m3 (for 2 and 3, ks / vs [P, Hkv] f32 are the
+// per-(page, head) scales; null otherwise). o_part / lam_part are scratch [n_splits, B, Hq,
 // hd] / [n_splits, B, Hq]; arrivals [B·Hkv] int32, zeroed here.
 extern "C" int flashd_decode_paged_launch(
     const void* q, const void* k_pages, const void* v_pages, const int* tbl,
@@ -301,7 +302,7 @@ extern "C" int flashd_decode_paged_launch(
   if (bad_split(Hq, Hkv, split, rows) || page < 1 || n_tbl < 1 ||
       (long long)n_splits * split < (long long)n_tbl * page)
     return (int)cudaErrorInvalidValue;
-  if ((kv_type == 2) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
+  if ((kv_type >= 2) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e = cudaMemsetAsync(arrivals, 0, sizeof(int) * B * Hkv, s);
   if (e != cudaSuccess) return (int)e;
@@ -313,6 +314,8 @@ extern "C" int flashd_decode_paged_launch(
   else if (q_type == 1 && kv_type == 1) e = dispatch_hd<__nv_bfloat16, __nv_bfloat16, true>(hd, a, s);
   else if (q_type == 0 && kv_type == 2) e = dispatch_hd<float, signed char, true>(hd, a, s);
   else if (q_type == 1 && kv_type == 2) e = dispatch_hd<__nv_bfloat16, signed char, true>(hd, a, s);
+  else if (q_type == 0 && kv_type == 3) e = dispatch_hd<float, __nv_fp8_e4m3, true>(hd, a, s);
+  else if (q_type == 1 && kv_type == 3) e = dispatch_hd<__nv_bfloat16, __nv_fp8_e4m3, true>(hd, a, s);
   else e = cudaErrorInvalidValue;
   return (int)e;
 }

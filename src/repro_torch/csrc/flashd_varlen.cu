@@ -32,9 +32,9 @@
 //     (not even the table) and leaves the identity partial (0, NEG_INF).
 //   - staging: K/V rows are 16-byte cp.async copies through the block table
 //     (row pos at page tbl[seq, pos / page], offset pos % page, the entry
-//     read by the copying thread for live rows only). An int8 pool is
-//     staged as bytes with its (page, kv head) scales and dequantized when
-//     read (x·scale, the reference's order).
+//     read by the copying thread for live rows only). A byte pool (int8
+//     or fp8 e4m3) is staged as bytes with its (page, kv head) scales and
+//     dequantized when read (x·scale, the reference's order).
 //   - few rows (< 16 live rows per kv head: decode rows, short verify
 //     segments): decode_fma.cuh's CUDA-core body, K3's, over the run in
 //     passes of 8 rows, each row masked at its own q_pos (causal, window,
@@ -81,7 +81,7 @@ struct Args {
   const int* seq_ids;   // [T]
   const int* q_pos;     // [T]
   const int* kv_len;    // [B]
-  const float* ks;      // [P, Hkv] f32 scales of an int8 pool, or null
+  const float* ks;      // [P, Hkv] f32 scales of a byte pool (int8, fp8), or null
   const float* vs;
   float* o_part;        // [n_splits, nb·RG, Hkv, rb, d] (n_splits > 1)
   float* lam_part;      // [n_splits, nb·RG, Hkv, rb]
@@ -125,7 +125,7 @@ __device__ __forceinline__ void store4(T* p, float a, float b, float c, float d)
 // ---- the tensor-core body ----
 
 template <typename TQ, typename TKV, int HD>
-struct TcSmem {  // bytes: Q, then K/V (QUANT: the dequantized tiles, then the int8 ring)
+struct TcSmem {  // bytes: Q, then K/V (QUANT: the dequantized tiles, then the byte ring)
   using L = tc::Layout<TQ, HD>;
   static constexpr bool QUANT = sizeof(TKV) == 1;
   static constexpr size_t RING = QUANT ? 3 * sizeof(TQ) * L::TILE : 0;
@@ -135,7 +135,7 @@ struct TcSmem {  // bytes: Q, then K/V (QUANT: the dequantized tiles, then the i
 
 // keys [k0, k0 + BK) ∩ [.., i1) of the pool into K and V tiles (row stride
 // LDD elements); keys ≥ i1 are zero-filled and read nothing, not even the
-// table; an int8 pool's row scales into dKs / dVs (0 past i1)
+// table; a byte pool's row scales into dKs / dVs (0 past i1)
 template <typename TKV, int HD, int LDD>
 __device__ __forceinline__ void stage_tile(TKV* dK, TKV* dV, float* dKs, float* dVs,
                                            const fma::KVSrc<TKV, true>& src, long long k0,
@@ -166,16 +166,17 @@ __device__ __forceinline__ void stage_tile(TKV* dK, TKV* dV, float* dKs, float* 
   }
 }
 
-// an int8 tile [BK][HD] with its row scales → a padded TQ tile, x·scale
-template <typename TQ, int HD>
-__device__ __forceinline__ void dequant_tile(TQ* dst, const signed char* src, const float* sc,
-                                             int tid) {
+// a byte tile (int8 or fp8 e4m3) [BK][HD] with its row scales → a padded
+// TQ tile, x·scale
+template <typename TQ, typename TKV, int HD>
+__device__ __forceinline__ void dequant_tile(TQ* dst, const TKV* src, const float* sc, int tid) {
   using L = tc::Layout<TQ, HD>;
   for (int i = tid; i < BK * HD / 4; i += NTHREADS) {
     const int r = i / (HD / 4), c4 = (i - r * (HD / 4)) * 4;
-    const char4 x = *reinterpret_cast<const char4*>(src + r * HD + c4);
+    float x[4];
+    fma::load_vec(src + r * HD + c4, x);
     const float s = sc[r];
-    store4(dst + r * L::LD + c4, (float)x.x * s, (float)x.y * s, (float)x.z * s, (float)x.w * s);
+    store4(dst + r * L::LD + c4, x[0] * s, x[1] * s, x[2] * s, x[3] * s);
   }
 }
 
@@ -194,7 +195,7 @@ __device__ __forceinline__ void tc_run(const Args& a, unsigned char* body, const
   constexpr int NJ = tc::NJ;
   TQ* sQ = reinterpret_cast<TQ*>(body);
   TQ* const sK0 = sQ + L::TILE;  // QUANT: the dequantized K, V; else stage st at sK0 + 2·st·TILE
-  TKV* const sB = reinterpret_cast<TKV*>(body + S::RING);  // QUANT: the int8 ring [2][2][BK][HD]
+  TKV* const sB = reinterpret_cast<TKV*>(body + S::RING);  // QUANT: the byte ring [2][2][BK][HD]
   float* const sBs = reinterpret_cast<float*>(body + S::SCALES);  // QUANT: [2][2][BK] scales
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -235,9 +236,9 @@ __device__ __forceinline__ void tc_run(const Args& a, unsigned char* body, const
     __syncthreads();
     const TQ* sK = sK0;
     if constexpr (QUANT) {
-      const signed char* b = reinterpret_cast<const signed char*>(sB) + (size_t)st * 2 * BK * HD;
-      dequant_tile<TQ, HD>(sK0, b, sBs + st * 2 * BK, tid);
-      dequant_tile<TQ, HD>(sK0 + L::TILE, b + BK * HD, sBs + st * 2 * BK + BK, tid);
+      const TKV* b = sB + (size_t)st * 2 * BK * HD;
+      dequant_tile<TQ, TKV, HD>(sK0, b, sBs + st * 2 * BK, tid);
+      dequant_tile<TQ, TKV, HD>(sK0 + L::TILE, b + BK * HD, sBs + st * 2 * BK + BK, tid);
       __syncthreads();
     } else {
       sK = sK0 + (size_t)st * 2 * L::TILE;
@@ -560,8 +561,8 @@ cudaError_t dispatch_hd(int hd, const Args& a, int nbr, cudaStream_t stream) {
 // of one sequence and writes rb partial rows. The caller chooses RG, bpg
 // and rb (flashd_varlen.py `_row_groups`); they are refused unless every
 // row of a group's blocks lands in one of RB-row groups and rb holds them.
-// q_type / kv_type: 0 float32, 1 bfloat16, 2 int8 (then ks / vs [P, Hkv]
-// f32 are the per-(page, head) scales; null otherwise). Strides are in
+// q_type / kv_type: 0 float32, 1 bfloat16, 2 int8, 3 fp8 e4m3 (for 2 and 3,
+// ks / vs [P, Hkv] f32 are the per-(page, head) scales; null otherwise). Strides are in
 // elements. With n_splits > 1, o_part [n_splits, nbr, Hkv, rb, hd] and
 // lam_part [n_splits, nbr, Hkv, rb] (nbr = T/block_q·RG) are scratch and
 // arrivals [nbr·Hkv] int32 is zeroed here.
@@ -584,7 +585,7 @@ extern "C" int flashd_varlen_launch(
   if (bpg < 1 || bpg > 32 || RG < 1 || (long long)RG * RB < group_rows ||
       rb < std::min<long long>(RB, group_rows))
     return (int)cudaErrorInvalidValue;
-  if ((kv_type == 2) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
+  if ((kv_type >= 2) != (ks != nullptr && vs != nullptr)) return (int)cudaErrorInvalidValue;
   if (n_splits > 1 && (o_part == nullptr || lam_part == nullptr || arrivals == nullptr))
     return (int)cudaErrorInvalidValue;
   const int nbr = T / block_q * RG;
@@ -602,6 +603,8 @@ extern "C" int flashd_varlen_launch(
   else if (q_type == 1 && kv_type == 1) e = dispatch_hd<__nv_bfloat16, __nv_bfloat16>(hd, a, nbr, s);
   else if (q_type == 0 && kv_type == 2) e = dispatch_hd<float, signed char>(hd, a, nbr, s);
   else if (q_type == 1 && kv_type == 2) e = dispatch_hd<__nv_bfloat16, signed char>(hd, a, nbr, s);
+  else if (q_type == 0 && kv_type == 3) e = dispatch_hd<float, __nv_fp8_e4m3>(hd, a, nbr, s);
+  else if (q_type == 1 && kv_type == 3) e = dispatch_hd<__nv_bfloat16, __nv_fp8_e4m3>(hd, a, nbr, s);
   else e = cudaErrorInvalidValue;
   return (int)e;
 }

@@ -35,9 +35,9 @@ splits sized by `gpu_decode_splits` over S_max = N·page, so a split is a run
 of logical positions — several small pages, or a part of a 64-token page.
 The thread that copies row i reads the table entry tbl[b, i // page]
 itself (the TPU resolved it in its DMA descriptors), only for live rows, so
-dead slots (page 0 in the engine) are never followed. An int8 pool with
-per-(page, head) f32 scales is staged as bytes and dequantized as it is
-read, before the scores. The partials merge in split order in the launch,
+dead slots (page 0 in the engine) are never followed. A byte pool — int8,
+or fp8 e4m3 — with per-(page, head) f32 scales is staged as bytes and
+dequantized as it is read (x·scale), before the scores. The partials merge in split order in the launch,
 as K2's. Same bound as K2.
 
 `launches` counts K2 wrapper calls that launched the kernel;
@@ -276,7 +276,7 @@ def flashd_decode_paged_plain(
     scale: Optional[float] = None,
     window: int = 0,
     chunk: int = 0,
-    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — byte pool (int8, fp8)
     v_scale: Optional[torch.Tensor] = None,
     n_splits: Optional[int] = None,
 ) -> torch.Tensor:
@@ -303,13 +303,18 @@ def flashd_decode_paged_plain(
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+if hasattr(torch, "float8_e4m3fn"):
+    _DTYPE_CODES[torch.float8_e4m3fn] = 3
+BYTE_POOLS = tuple(dt for dt, code in _DTYPE_CODES.items() if code >= 2)  # scaled pools
 
 
 def check_pool(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                block_tbl: torch.Tensor, k_scale, v_scale):
     """Checks shared by the paged kernels (K3, K4), which copy q rows and
-    pool rows by 16-byte cp.async (`check_copy_alignment`). Returns the
-    pool's dtype code and the scales as contiguous f32 (or None)."""
+    pool rows by 16-byte cp.async (`check_copy_alignment`). A pool is q's
+    dtype, or a byte pool (int8, fp8 e4m3) with k_scale / v_scale.
+    Returns the pool's dtype code and the scales as contiguous f32 (or
+    None)."""
     check_operands(name, (q,), q.shape[-1])
     check_no_grad(q, k_pages, v_pages)
     for t in (k_pages, v_pages, block_tbl):
@@ -324,10 +329,11 @@ def check_pool(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("k_scale and v_scale must be passed together")
-    if quantized != (k_pages.dtype == torch.int8) or (
+    if quantized != (k_pages.dtype in BYTE_POOLS) or (
             not quantized and k_pages.dtype != q.dtype):
-        raise ValueError(f"{name}: pool dtype {k_pages.dtype} with q {q.dtype}: an int8 pool "
-                         "needs k_scale/v_scale, any other pool q's dtype")
+        formats = " or ".join(str(dt) for dt in BYTE_POOLS)
+        raise ValueError(f"{name}: pool dtype {k_pages.dtype} with q {q.dtype}: a byte pool "
+                         f"({formats}) needs k_scale/v_scale, any other pool q's dtype")
     check_copy_alignment(name, (q, k_pages, v_pages))
     if block_tbl.dtype != torch.int32 or not block_tbl.is_contiguous():
         raise ValueError(f"{name}: block_tbl must be a contiguous int32 tensor on the card")
@@ -339,7 +345,7 @@ def check_pool(name: str, q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
         if sc.shape != (p, hkv) or sc.device != q.device:
             raise ValueError(f"{name}: scales must be [P={p}, Hkv={hkv}] on {q.device}")
         scales.append(sc.float().contiguous())
-    return 2, scales[0], scales[1]
+    return _DTYPE_CODES[k_pages.dtype], scales[0], scales[1]
 
 
 def flashd_decode_paged(
@@ -352,7 +358,7 @@ def flashd_decode_paged(
     scale: Optional[float] = None,
     window: int = 0,
     chunk: int = 0,
-    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — byte pool (int8, fp8)
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch K3. Returns o [B, Hq, d] in q.dtype; the splits are

@@ -100,7 +100,7 @@ def flashd_varlen_plain(
     window: int = 0,
     chunk: int = 0,
     block_q: int,
-    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — byte pool (int8, fp8)
     v_scale: Optional[torch.Tensor] = None,
     n_splits: Optional[int] = None,
 ) -> torch.Tensor:
@@ -203,7 +203,7 @@ def flashd_varlen(
     window: int = 0,
     chunk: int = 0,
     block_q: int,
-    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — int8 pool
+    k_scale: Optional[torch.Tensor] = None,  # [P, Hkv] f32 — byte pool (int8, fp8)
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch K4. Returns o [T, Hq, d] in q.dtype. T must be a multiple of

@@ -6,6 +6,9 @@
     # on, as the reference's default; --no-prefix-cache turns it off):
     ... --kv-layout paged
     ... --step-mode mixed --prefill-chunk 16
+    # a quantized page pool; speculative decoding with a draft model:
+    ... --kv-layout paged --kv-dtype int8
+    ... --step-mode mixed --spec-tokens 4 --draft-config qwen3-0.6b
 
 Runs on the card unless `--device cpu` is given (then at `--smoke` widths,
 as a check of the control flow). On the card the engine replays its steps
@@ -44,6 +47,10 @@ def main(argv=None):
     p.add_argument("--page-size", type=int, default=0, help="tokens per KV page (0 → tuned)")
     p.add_argument("--kv-pool-tokens", type=int, default=0,
                    help="paged pool size in tokens (0 → max_batch·max_len)")
+    p.add_argument("--kv-dtype", default="",
+                   help='quantize the paged KV pool: "int8" or "fp8" (e4m3) stores pages at '
+                        '1 B/element with a per-(page, kv head) f32 scale side-band; needs '
+                        '--kv-layout paged or --step-mode mixed; "" → the compute dtype')
     p.add_argument("--step-mode", choices=("sequential", "mixed"), default="sequential",
                    help="mixed: chunked-prefill continuous batching, one packed varlen step "
                         "per iteration")
@@ -57,12 +64,31 @@ def main(argv=None):
     p.add_argument("--no-preemption", action="store_true",
                    help="reserve each request's worst case at admission instead of "
                         "preempting under page pressure")
+    p.add_argument("--spec-tokens", type=int, default=0,
+                   help="speculative decoding: draft tokens verified per round through one "
+                        "packed step; 0 → off. Greedy only; needs --kv-layout paged or "
+                        "--step-mode mixed")
+    p.add_argument("--draft-config", default="qwen3-0.6b",
+                   help="architecture of the draft model proposing spec tokens (its smoke "
+                        "config under --smoke; weights drawn from --seed + 1)")
+    p.add_argument("--no-spec", action="store_true",
+                   help="force speculation off even if --spec-tokens is set (an A/B against "
+                        "the same command line)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
     params = init_lm(cfg, device=device, seed=args.seed)
+    spec_tokens = 0 if args.no_spec else args.spec_tokens
+    draft = None
+    if spec_tokens > 0:
+        # random draft weights still drive the whole verify / rollback path
+        # (most proposals are rejected; the tokens are the same by construction)
+        dcfg = (configs.get_smoke_config(args.draft_config) if args.smoke
+                else configs.get_config(args.draft_config))
+        draft = (init_lm(dcfg, device=device, seed=args.seed + 1), dcfg)
+        print(f"speculative decoding: draft={args.draft_config} k={spec_tokens}")
     eng = Engine(params, cfg, ServeConfig(
         max_batch=args.max_batch,
         max_len=args.prompt_len + args.max_new_tokens + 8,
@@ -71,12 +97,14 @@ def main(argv=None):
         kv_layout=args.kv_layout,
         page_size=args.page_size,
         kv_pool_tokens=args.kv_pool_tokens,
+        kv_dtype=args.kv_dtype,
         step_mode=args.step_mode,
         token_budget=args.token_budget,
         prefill_chunk=args.prefill_chunk,
         prefix_cache=not args.no_prefix_cache,
         preemption=not args.no_preemption,
-    ), device=device)
+        spec_tokens=spec_tokens,
+    ), device=device, draft=draft)
     rng = np.random.default_rng(args.seed)
     reqs = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
             for _ in range(args.requests)]
@@ -108,6 +136,10 @@ def main(argv=None):
               f"{st['host_syncs']} host syncs; prefix cache "
               f"{'on' if st['prefix_cache_enabled'] else 'off'}, {st['hit_tokens']} of "
               f"{st['prompt_tokens']} prompt tokens cached")
+    if st["spec_enabled"]:
+        print(f"speculation: {st['spec_rounds']} rounds, {st['spec_accepted']} of "
+              f"{st['spec_drafted']} drafts accepted (rate {st['spec_acceptance_rate']:.2f}, "
+              f"{st['spec_mean_accepted']:.2f} a round)")
     return 0
 
 

@@ -11,7 +11,8 @@ K3 for decode on the paged pool, K4 for the packed mixed step).
 
 Caches: contiguous ([L, B, S, Hkv, hd] per layer group) or paged (a page
 pool [L, P, page, Hkv, hd] per layer plus block tables [L, B, N]; every
-layer holds the same table). They are updated IN PLACE (`index_put` into
+layer holds the same table; a quantized pool stores bytes with per-(page,
+kv head) scales [L, P, Hkv]). They are updated IN PLACE (`index_put` into
 the stacked tensors), where the reference rebuilt them functionally, so
 decode and `forward_packed` return the cache object they were given. The
 fault-tolerant retry of a later slice (A10) needs the reference's
@@ -320,13 +321,20 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
     'tbl' [n_blocks, batch, N] int32 (N = ⌈max_len / page⌉), every row
     starting on the garbage page 0. The geometry comes from
     `tuning.choose_page_layout`, sized at (n_pages − 1)·page_size tokens
-    when both are given, else at batch·max_len — as the reference. A
-    quantized pool (kv_dtype, A8) is not ported."""
+    when both are given, else at batch·max_len — as the reference.
+
+    kv_dtype ∈ `quant.available()` stores the pool in that one-byte format
+    with per-(page, kv head) f32 scale leaves 'k_scale' / 'v_scale'
+    [n_blocks, P, Hkv], 1.0 on never-written pages; "" keeps the compute
+    dtype. Only a paged pool quantizes (ValueError otherwise)."""
+    from repro_torch.runtime import quant  # lazy: no cycle
+
     check_ported(cfg)
     if layout not in ("contiguous", "paged"):
         raise ValueError(f"unknown cache layout {layout!r}")
-    if kv_dtype:
-        raise NotImplementedError(f"kv_dtype {kv_dtype!r} not ported (A8)")
+    kv_spec = quant.get_spec(kv_dtype)
+    if kv_spec is not None and layout != "paged":
+        raise ValueError("kv_dtype quantization requires layout='paged'")
     dev = resolve_device(device)
     geom = None
     if layout == "paged":
@@ -338,6 +346,7 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
             pool_tokens=(n_pages - 1) * page_size if (n_pages and page_size)
             else batch * max_len,
             page_size=page_size,
+            kv_itemsize=quant.kv_itemsize(kv_dtype),
         )
         geom = (pl_.n_pages, pl_.page_size, pl_.pages_per_seq)
 
@@ -349,11 +358,17 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
                     "v": torch.zeros(shape, dtype=dt, device=dev)}
         n_p, page, per_seq = geom
         pshape = (n, n_p, page, cfg.n_kv_heads, cfg.head_dim_)
-        return {
-            "k_pages": torch.zeros(pshape, dtype=dt, device=dev),
-            "v_pages": torch.zeros(pshape, dtype=dt, device=dev),
+        pool_dt = dt if kv_spec is None else kv_spec.dtype
+        leaves = {
+            "k_pages": torch.zeros(pshape, dtype=pool_dt, device=dev),
+            "v_pages": torch.zeros(pshape, dtype=pool_dt, device=dev),
             "tbl": torch.zeros((n, batch, per_seq), dtype=torch.int32, device=dev),
         }
+        if kv_spec is not None:
+            for name in ("k_scale", "v_scale"):
+                leaves[name] = torch.ones((n, n_p, cfg.n_kv_heads), dtype=torch.float32,
+                                          device=dev)
+        return leaves
 
     cache: dict = {}
     for key, pattern in _groups(cfg):
@@ -396,9 +411,35 @@ def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos, alive=None):
     return torch.matmul(o, p["wo"].to(cfg.compute_dtype))
 
 
+def _write_pool(cache, k_new, v_new, pid, slot, is_slot0) -> None:
+    """Write rows k_new / v_new [N, Hkv, hd] at (page pid, slot) of the
+    pool, in place. A quantized pool (scale leaves) first scatters the
+    slot-0 rows' page scales (`quant.slot0_scale`; every other row is
+    routed to the garbage page 0, whose scale no live row reads), then
+    quantizes every row with its page's updated scale — so a call that
+    writes slot 0 and later slots of one page stores what the sequential
+    write order stores (the reference's rule). Duplicate indices of an
+    in-place scatter land in any order on the card: only page 0 takes
+    duplicates."""
+    k_scale = cache.get("k_scale")
+    if k_scale is not None:
+        from repro_torch.runtime import quant  # lazy: no cycle
+
+        spec = quant.spec_for_dtype(cache["k_pages"].dtype)
+        spid = torch.where(is_slot0, pid, 0)
+        for rows, name in ((k_new, "k_scale"), (v_new, "v_scale")):
+            leaf = cache[name]
+            leaf[spid] = torch.where(is_slot0[:, None], quant.slot0_scale(rows, spec), leaf[0])
+        k_new = quant.quantize_rows(k_new, k_scale[pid], spec)
+        v_new = quant.quantize_rows(v_new, cache["v_scale"][pid], spec)
+    cache["k_pages"][pid, slot] = k_new
+    cache["v_pages"][pid, slot] = v_new
+
+
 def _paged_attn_step(q, k, v, cfg: ModelConfig, cache, pos):
     """One-token attention against a paged cache: write the new K/V in place
-    into the position's physical page through the block table, then attend
+    into the position's physical page through the block table (quantized
+    by the slot-0 rule on a quantized pool, `_write_pool`), then attend
     through the table (K3 on the card). Writes past the table (dead slots
     whose `pos` keeps advancing in the lockstep batch) land on the garbage
     page 0. → o [B, 1, Hq, hd]."""
@@ -409,14 +450,14 @@ def _paged_attn_step(q, k, v, cfg: ModelConfig, cache, pos):
     page_idx = torch.div(pos, page, rounding_mode="floor")
     pid = torch.where(page_idx < n_tbl, tbl[bidx, torch.clamp(page_idx, max=n_tbl - 1)], 0).long()
     slot = pos % page
-    k_pages[pid, slot] = k[:, 0]
-    v_pages[pid, slot] = v[:, 0]
+    _write_pool(cache, k[:, 0], v[:, 0], pid, slot, slot == 0)
     eff_len = pos + 1
+    scales = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     if uses_kernel(cfg.attn_impl, q):
         from repro_torch.kernels import ops  # lazy: no cycle
 
-        return ops.get_op("decode_paged")(q, k_pages, v_pages, tbl, eff_len)
-    return decode_attention_paged(q, k_pages, v_pages, tbl, eff_len)
+        return ops.get_op("decode_paged")(q, k_pages, v_pages, tbl, eff_len, **scales)
+    return decode_attention_paged(q, k_pages, v_pages, tbl, eff_len, **scales)
 
 
 def _decode_block(bp, h, cfg: ModelConfig, spec, cache, pos, alive=None):
@@ -508,8 +549,9 @@ def _packed_attn(p, x, cfg: ModelConfig, kind: str, cache, positions, seq_ids, k
     """Packed varlen attention for one layer: write the pack's new K/V in
     place into each row's physical page through the block table (padding
     rows — seq_ids or positions < 0 — and rows past the table write the
-    garbage page 0), then attend the pack through `varlen_attention` (K4 on
-    the card). x [1, T, D]; positions / seq_ids [T]; kv_len [B]."""
+    garbage page 0; a quantized pool by the slot-0 rule, `_write_pool`),
+    then attend the pack through `varlen_attention` (K4 on the card).
+    x [1, T, D]; positions / seq_ids [T]; kv_len [B]."""
     t = x.shape[1]
     q, k, v = _qkv(p, x, cfg, kind, positions[None])
     k_pages, v_pages, tbl = cache["k_pages"], cache["v_pages"], cache["tbl"]
@@ -519,10 +561,10 @@ def _packed_attn(p, x, cfg: ModelConfig, kind: str, cache, positions, seq_ids, k
     in_tbl = (seq_ids >= 0) & (positions >= 0) & (page_idx < n_tbl)
     pid = torch.where(in_tbl, tbl[sid, torch.clamp(page_idx, 0, n_tbl - 1)], 0).long()
     slot = torch.where(positions >= 0, positions % page, 0)
-    k_pages[pid, slot] = k[0]
-    v_pages[pid, slot] = v[0]
+    _write_pool(cache, k[0], v[0], pid, slot, (slot == 0) & in_tbl)
     o = varlen_attention(q[0], k_pages, v_pages, tbl, seq_ids, positions, kv_len,
-                         impl=cfg.attn_impl, block_q=block_q)
+                         impl=cfg.attn_impl, block_q=block_q,
+                         k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     return torch.matmul(o.reshape(1, t, cfg.n_heads * cfg.head_dim_), p["wo"].to(cfg.compute_dtype))
 
 

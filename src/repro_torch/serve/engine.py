@@ -51,15 +51,23 @@ length (the reference pads to a power of two and masks the padding with
 reference's power-of-two pack lengths, so both packers yield the same
 layout.
 
+A quantized pool (`kv_dtype` "int8" or "fp8") stores pages at one byte an
+element with per-(page, kv head) f32 scales, written by the slot-0 rule
+(`models/transformer.py` `_write_pool`) and read by K3 / K4. Speculative
+decoding (`spec_tokens` with `Engine(draft=...)`) replaces the paged loop's
+decode chunks and the mixed loop's steps with rounds: the draft proposes K
+tokens per decoding slot (`serve/speculative.py`), one packed verify step
+(`_verify`, K4) scores every row, the longest accepted prefix commits and
+the rejected rows' pages roll back through the allocator.
+
 Host syncs: `generate` keeps every token on the device and copies them to
 the host once (`host_syncs` counts each device→host copy); the sequential
 loops sync once per prefill and once per `decode_chunk` decode steps; the
-mixed loop once per packed step or decode chunk. Caches are updated in
-place, so a step is committed before its sync (the reference commits after
-it; fault retry, A10, needs that back).
+mixed loop once per packed step or decode chunk; a speculative round once.
+Caches are updated in place, so a step is committed before its sync (the
+reference commits after it; fault retry, A10, needs that back).
 
-Not ported yet, and refused at construction: quantized KV (A8),
-speculation (A9), fault injection and snapshot / restore (A10).
+Not ported yet, and refused: fault injection and snapshot / restore (A10).
 """
 
 from __future__ import annotations
@@ -77,6 +85,7 @@ from repro_torch.kernels.tuning import (
     choose_cache_policy,
     choose_page_layout,
     choose_varlen_blocks,
+    padded_rows,
 )
 from repro_torch.models import ModelConfig, get_model
 from repro_torch.models.transformer import (
@@ -86,13 +95,17 @@ from repro_torch.models.transformer import (
     packed_mixers_ok,
     paged_mixers,
 )
+from repro_torch.runtime import quant
 from repro_torch.runtime.kvcache import CachePolicy, PagedKVAllocator, PageError, pages_for
 from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.scheduler import Request, Scheduler, StepPlan
 
-__all__ = ["ServeConfig", "Engine", "sample_token", "pack_plan"]
+__all__ = ["ServeConfig", "Engine", "sample_token", "pack_plan", "pack_verify"]
 
-_POOL_LEAVES = ("k_pages", "v_pages")
+# pool leaves (no batch axis; the physical page axis at 1): the pages and a
+# quantized pool's scale side-band, so page copies move bytes and scales
+# together and the pool's footprint counts both
+_POOL_LEAVES = ("k_pages", "v_pages", "k_scale", "v_scale")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,7 +121,10 @@ class ServeConfig:
     kv_layout: str = "contiguous"  # "paged": page-pool KV in `serve`
     page_size: int = 0  # 0 → tuning heuristic
     kv_pool_tokens: int = 0  # pool size in tokens; 0 → max_batch·max_len
-    kv_dtype: str = ""  # quantized pool: A8
+    # quantized page pool: "" keeps the compute dtype; a name from
+    # `runtime.quant.available()` ("int8", "fp8") stores pages in that format
+    # with per-(page, kv head) f32 scale leaves, dequantized in K3 / K4
+    kv_dtype: str = ""
     # prefix reuse: `prefix_sharing` is the soundness gate (global-attention
     # stacks), `prefix_cache` the radix prefix cache across requests
     prefix_sharing: bool = True
@@ -120,7 +136,10 @@ class ServeConfig:
     step_mode: str = "sequential"  # "mixed": chunked-prefill packed steps
     token_budget: int = 0  # packed tokens per mixed step; 0 → max_batch + prefill_chunk
     prefill_chunk: int = 16  # max prompt tokens one sequence feeds per step
-    spec_tokens: int = 0  # speculative decoding: A9
+    # speculative decoding: K draft tokens verified per round through one
+    # packed step; 0 disables. Needs Engine(draft=...), greedy sampling and
+    # a paged, packed-capable stack
+    spec_tokens: int = 0
     deadline_s: float = 0.0  # default per-request deadline; 0 → none
     fault_rate: float = 0.0  # chaos injection: A10
 
@@ -160,35 +179,66 @@ def _leaves(tree: dict):
             yield k, v
 
 
-def pack_plan(plan: StepPlan, block_q: int, max_batch: int):
-    """The mixed step's packer: a plan's segments → flat numpy arrays
-    (tokens, seq_ids, positions, kv_len, last_rows).
+def _pack(plan: StepPlan, block_q: int, max_batch: int):
+    """A plan's segments → (tokens, seq_ids, positions, kv_len, offsets).
 
     Each segment starts on a `block_q` boundary (so every q block of the
     pack belongs to one sequence, K4's contract) and the pack is padded to
     a power of two ≥ block_q; padding rows carry seq_id −1, position −1.
-    kv_len [max_batch] is each slot's KV length after the pack; last_rows
-    [max_batch] the pack row sampled for an emitting segment, −1 elsewhere."""
+    kv_len [max_batch] is each slot's KV length after the pack; offsets the
+    segments' first rows."""
     off = 0
     spans = []
     for seg in plan.segments:
         spans.append(off)
-        off += -(-len(seg.tokens) // block_q) * block_q
+        off += padded_rows(len(seg.tokens), block_q)
     total = bucket_pow2(max(off, 1), lo=block_q)
     tokens = np.zeros((total,), np.int32)
     seq_ids = np.full((total,), -1, np.int32)
     positions = np.full((total,), -1, np.int32)
     kv_len = np.zeros((max_batch,), np.int32)
-    last_rows = np.full((max_batch,), -1, np.int32)
     for seg, o in zip(plan.segments, spans):
         n = len(seg.tokens)
         tokens[o:o + n] = seg.tokens
         seq_ids[o:o + n] = seg.slot
         positions[o:o + n] = np.arange(seg.start, seg.start + n)
         kv_len[seg.slot] = seg.start + n
+    return tokens, seq_ids, positions, kv_len, spans
+
+
+def pack_plan(plan: StepPlan, block_q: int, max_batch: int):
+    """The mixed step's packer: a plan's segments → flat numpy arrays
+    (tokens, seq_ids, positions, kv_len, last_rows), laid out by `_pack`;
+    last_rows [max_batch] is the pack row sampled for an emitting segment,
+    −1 elsewhere."""
+    tokens, seq_ids, positions, kv_len, spans = _pack(plan, block_q, max_batch)
+    last_rows = np.full((max_batch,), -1, np.int32)
+    for seg, o in zip(plan.segments, spans):
         if seg.emits:
-            last_rows[seg.slot] = o + n - 1
+            last_rows[seg.slot] = o + len(seg.tokens) - 1
     return tokens, seq_ids, positions, kv_len, last_rows
+
+
+def pack_verify(plan: StepPlan, block_q: int, max_batch: int, k: int, prefilling):
+    """The speculative round's packer (the reference's `_spec_round` pack):
+    `_pack`'s (tokens, seq_ids, positions, kv_len), then rows [max_batch,
+    k + 1] — each verify segment's pack rows (row 0 the pending token, rows
+    1… its drafts; a prefill-final segment of a slot in `prefilling` only
+    its last row; −1 pads) — and dmat [max_batch, k], the drafts the plan
+    carries (−1 = none; placeholders when the draft lives on the device)."""
+    tokens, seq_ids, positions, kv_len, spans = _pack(plan, block_q, max_batch)
+    rows = np.full((max_batch, k + 1), -1, np.int32)
+    dmat = np.full((max_batch, k), -1, np.int32)
+    for seg, o in zip(plan.segments, spans):
+        n = len(seg.tokens)
+        if not seg.emits:
+            continue
+        if seg.slot in prefilling:
+            rows[seg.slot, 0] = o + n - 1
+        else:
+            rows[seg.slot, :n] = np.arange(o, o + n)
+            dmat[seg.slot, :n - 1] = seg.tokens[1:]
+    return tokens, seq_ids, positions, kv_len, rows, dmat
 
 
 class _Bank:
@@ -228,23 +278,19 @@ class _PoolCtx:
 
 class Engine:
     def __init__(self, params: dict, model_cfg: ModelConfig, serve_cfg: ServeConfig,
-                 *, device=None, graphs: Optional[bool] = None):
+                 *, device=None, graphs: Optional[bool] = None, draft=None):
         """`graphs`: replay the steps as captured CUDA graphs (None → on a
         CUDA engine, eager on the CPU; False → eager on the card too, the
-        oracle; True on the CPU raises)."""
+        oracle; True on the CPU raises). `draft` (with `spec_tokens` > 0):
+        a (params, ModelConfig) pair for a draft model, a `DraftModel`, or a
+        host callable fn(rid, tokens, k) → proposals."""
         if serve_cfg.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {serve_cfg.kv_layout!r}")
         if serve_cfg.step_mode not in ("sequential", "mixed"):
             raise ValueError(f"unknown step_mode {serve_cfg.step_mode!r}")
         pooled = serve_cfg.kv_layout == "paged" or serve_cfg.step_mode == "mixed"
-        unported = {
-            "kv_dtype": (bool(serve_cfg.kv_dtype), "A8"),
-            "spec_tokens": (serve_cfg.spec_tokens > 0, "A9"),
-            "fault_rate": (serve_cfg.fault_rate > 0, "A10"),
-        }
-        for name, (asked, item) in unported.items():
-            if asked:
-                raise NotImplementedError(f"ServeConfig.{name} not ported ({item})")
+        if serve_cfg.fault_rate > 0:
+            raise NotImplementedError("ServeConfig.fault_rate not ported (A10)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -263,7 +309,7 @@ class Engine:
         self.ttft = {}  # rid → time-to-first-token of the last serve() call
         self._stats = {"prefix_lookups": 0, "prefix_hits": 0, "hit_tokens": 0,
                        "prompt_tokens": 0, "preemptions": 0, "failed": 0, "retried": 0,
-                       "expired": 0}
+                       "expired": 0, "spec_rounds": 0, "spec_drafted": 0, "spec_accepted": 0}
         self._sched: Optional[Scheduler] = None
         # paged geometry (paged or mixed engines with a global-attention layer)
         self._page_layout = None
@@ -273,6 +319,7 @@ class Engine:
                 group=model_cfg.n_heads // model_cfg.n_kv_heads,
                 pool_tokens=serve_cfg.kv_pool_tokens or serve_cfg.max_batch * serve_cfg.max_len,
                 page_size=serve_cfg.page_size or None,
+                kv_itemsize=quant.kv_itemsize(serve_cfg.kv_dtype),
             )
         self._mixed_ok = (serve_cfg.step_mode == "mixed" and self._page_layout is not None
                           and packed_mixers_ok(model_cfg))
@@ -287,6 +334,33 @@ class Engine:
         self._paged: Optional[_Bank] = None
         self._contig: dict = {}
         self._seq_base = 0  # allocator sequence ids, unique across calls
+        self._spec = None
+        if serve_cfg.spec_tokens > 0:
+            self._spec = self._spec_state(draft)
+
+    def _spec_state(self, draft):
+        """Validate speculative decoding as the reference does and build its
+        state: greedy only, a paged or mixed engine on a packed-capable
+        stack (the verify step is the packed step), and a draft."""
+        from repro_torch.serve.speculative import DraftModel, SpecState  # lazy: no cycle
+
+        sc = self.sc
+        if draft is None:
+            raise ValueError("spec_tokens > 0 needs Engine(draft=...): a (params, "
+                             "ModelConfig) pair for a draft model or a host callable")
+        if sc.temperature > 0:
+            raise ValueError("speculative decoding is greedy-only: the accept rule compares "
+                             "draft tokens against the target's argmax, so temperature must be 0")
+        if self._page_layout is None or not packed_mixers_ok(self.mc) \
+                or not (self._mixed_ok or sc.kv_layout == "paged"):
+            raise ValueError("speculative decoding verifies drafts through the packed varlen "
+                             "step over the paged pool — needs kv_layout='paged' or "
+                             "step_mode='mixed' on a packed-capable stack")
+        if isinstance(draft, tuple):
+            dparams, dcfg = draft
+            draft = DraftModel(dparams, dcfg, max_batch=sc.max_batch, max_len=sc.max_len,
+                               device=self.device, graphs=self._steps.graphs)
+        return SpecState(k=int(sc.spec_tokens), draft=draft)
 
     def _to_host(self, x: torch.Tensor) -> np.ndarray:
         """The engine's ONLY device→host copy (counted for tests)."""
@@ -319,6 +393,9 @@ class Engine:
         self._stats["retried"] += sched.retried
         self._stats["failed"] += sched.failed
         self._stats["expired"] += sched.expired
+        self._stats["spec_rounds"] += sched.spec_rounds
+        self._stats["spec_drafted"] += sched.spec_drafted
+        self._stats["spec_accepted"] += sched.spec_accepted
 
     def stats(self) -> dict:
         """Serving counters, cumulative over this engine's lifetime: prefix-
@@ -329,6 +406,11 @@ class Engine:
         s["hit_rate"] = s["hit_tokens"] / max(s["prompt_tokens"], 1)
         s["prefix_cache_enabled"] = self._cache_on
         s["preemption_enabled"] = bool(self.sc.preemption)
+        s["spec_enabled"] = self._spec is not None
+        s["spec_rejected"] = s["spec_drafted"] - s["spec_accepted"]
+        s["spec_acceptance_rate"] = s["spec_accepted"] / max(s["spec_drafted"], 1)
+        # accepted drafts per verify round (each round also emits a bonus token)
+        s["spec_mean_accepted"] = s["spec_accepted"] / max(s["spec_rounds"], 1)
         s["peak_active"] = self.peak_active
         s["ttft"] = dict(self.ttft)
         s["attn_impl"] = self.mc.attn_impl
@@ -338,6 +420,7 @@ class Engine:
                      cached_pages=self._alloc.cached_pages,
                      pages_in_use=self._alloc.pages_in_use, free_pages=self._alloc.free_pages)
         if self._paged is not None:
+            # the pool's device footprint (a quantized pool's scales included)
             seen = sum(x.numel() * x.element_size() for name, x in _leaves(self._paged.cache)
                        if name in _POOL_LEAVES)
             pool_tokens = self._page_layout.n_pages * self._page_layout.page_size
@@ -550,7 +633,8 @@ class Engine:
             self._alloc = PagedKVAllocator(lay.n_pages, lay.page_size, cache_policy=policy)
             cache = self.api.init_cache(
                 self.sc.max_batch, self.sc.max_len, self.mc, layout="paged",
-                page_size=lay.page_size, n_pages=lay.n_pages, device=self.device,
+                page_size=lay.page_size, n_pages=lay.n_pages, kv_dtype=self.sc.kv_dtype,
+                device=self.device,
             )
             self._paged = _Bank(cache, self.sc.max_batch, self.device)
         return self._alloc, self._paged
@@ -643,11 +727,15 @@ class Engine:
     def _pool_reserve(self, req: Request, max_new_tokens: int, chunk_n: int) -> int:
         """Admission reservation: just the prompt under preemption
         (optimistic growth) or the worst case without (prompt + remaining
-        new tokens + one chunk of lockstep slack, clamped to max_len)."""
+        new tokens + slack, clamped to max_len). The slack is one chunk of
+        lockstep writes, or with speculation a whole K + 1-row verify
+        segment: rejected rows give their pages back (`alloc.rollback`), so
+        one verify's overhang is enough."""
         n = len(req.tokens)
         if self.sc.preemption:
             return n
-        return min(n + max_new_tokens - len(req.out) + chunk_n, self.sc.max_len)
+        slack = max(chunk_n, self._spec.k + 1 if self._spec else 0)
+        return min(n + max_new_tokens - len(req.out) + slack, self.sc.max_len)
 
     def _pool_match(self, alloc, toks: np.ndarray):
         """Radix lookup for an admission, capped so ≥ 1 token prefills."""
@@ -707,6 +795,128 @@ class Engine:
         self._note_admission(toks, cached)
         return seq, cached
 
+    # ---- packed-step planning and speculative rounds ----
+    def _plan_grown(self, sched: Scheduler, alloc, ctx: _PoolCtx, budget: int, pchunk: int,
+                    drafts=None) -> StepPlan:
+        """Plan a packed step and materialize its pages; a victim preemption
+        invalidates the plan (a dead slot's segment must not run), so re-plan
+        until a growth pass is stable. `drafts` adds speculative draft rows
+        (plan_step funds them from leftover budget only)."""
+        while True:
+            plan = sched.plan_step(budget, pchunk, drafts=drafts)
+            r0 = sched.rollbacks
+            for seg in plan.segments:
+                end = min(seg.start + len(seg.tokens), self.sc.max_len)
+                if end > alloc.seq_len(ctx.seq_of[seg.slot]):
+                    self._pool_grow(sched, alloc, ctx, seg.slot, end)
+                if sched.rollbacks != r0:
+                    break
+            if sched.rollbacks == r0:
+                return plan
+
+    def _verify(self, bank: _Bank, arrays, drafts: Optional[torch.Tensor],
+                block_q: int) -> torch.Tensor:
+        """ONE speculative verify step (the reference's `_verify_fn`), a
+        graph per pack length: the packer's arrays (`pack_verify`) enter one
+        static buffer; the drafts are clamped into the vocab (an
+        out-of-range id would embed as garbage) and scattered into the
+        pack's placeholder token rows — masked entries go to a dump row past
+        the pack, never wrapping — with device proposals (`drafts` [B, K], a
+        DraftModel's static buffer) taken where the plan funded a row; then
+        the packed forward with logits at every verify row, argmax, and the
+        accepted count, the length of the leading run of rows whose argmax
+        equals the next draft (cumprod). Returns the static [B, R + 1]
+        buffer: the target's token at every row, the count last."""
+        tokens, seq_ids, positions, kv_len, rows, dmat = arrays
+        t, b = len(tokens), self.sc.max_batch
+        r = rows.shape[1]
+        k = r - 1
+        pack = bank.buf(("verify", t, r), (t + 1 + 2 * t + b + b * r + b * k,))
+        self._steps.put(pack, np.concatenate([tokens, [0], seq_ids, positions, kv_len,
+                                              rows.ravel(), dmat.ravel()]))
+        out = bank.buf(("verified", r), (b, r + 1))
+
+        def step():
+            fed = pack[:t + 1]  # the pack's tokens, then the dump row t
+            o = t + 1
+            sid, pos = pack[o:o + t], pack[o + t:o + 2 * t]
+            o += 2 * t
+            kvl = pack[o:o + b]
+            rws = pack[o + b:o + b + b * r].view(b, r)
+            dm = pack[o + b + b * r:].view(b, k)
+            dt = dm if drafts is None else torch.where(dm >= 0, drafts, -1)
+            dt = torch.clamp(dt, max=self.mc.vocab_size - 1)  # negatives stay −1: no draft
+            ok = (rws[:, 1:] >= 0) & (dt >= 0)
+            fed.index_put_((torch.where(ok, rws[:, 1:], t).reshape(-1),),
+                           torch.where(ok, dt, 0).reshape(-1))
+            logits, _ = forward_packed(self.params, fed[:t], sid, pos, kvl, bank.cache,
+                                       self.mc, rws, block_q=block_q)  # [B, R, Vpad]
+            g = torch.argmax(logits, dim=-1)
+            match = (g[:, :-1] == dt) & (dt >= 0)
+            out[:, :r].copy_(g)
+            out[:, r].copy_(torch.cumprod(match.long(), dim=1).sum(dim=1))
+
+        self._steps.run(bank.graphs, ("verify", t, r, block_q, drafts is not None), step)
+        return out
+
+    def _spec_round(self, sched: Scheduler, alloc, ctx: _PoolCtx, bank: _Bank, *,
+                    budget: int, pchunk: int, block_q: int) -> List[int]:
+        """One speculative round (the reference's `_spec_round`): propose K
+        tokens per decoding slot, verify them all (with any prefill chunks
+        in flight) in ONE packed step and ONE host sync, commit each chain's
+        longest accepted prefix, and roll the allocator back past every
+        rejected row — those pages are freed, never donated, so the radix
+        tree only ever holds committed KV (stale rows inside the boundary
+        page sit at positions ≥ kv_len, masked, and are overwritten before
+        any row reads them)."""
+        from repro_torch.serve.speculative import DraftModel  # lazy: no cycle
+
+        spec = self._spec
+        k = spec.k
+        # 1. per-slot draft quota, clamped by max_new_tokens, max_len and deadlines
+        quota = {s: sched.draft_quota(s, k, max_len=self.sc.max_len, per_row_s=spec.row_ewma)
+                 for s, sl in enumerate(sched.slots) if sl.live and not sl.prefilling}
+        # 2. propose
+        dev_drafts = None
+        drafts = {}
+        if isinstance(spec.draft, DraftModel):
+            spec.draft.sync(sched)
+            dev_drafts = spec.draft.propose(sched, k)  # [B, K], on the device
+            drafts = {s: np.zeros((q,), np.int32) for s, q in quota.items() if q > 0}
+        else:
+            for s, q in quota.items():
+                if q <= 0:
+                    continue
+                sl = sched.slots[s]
+                stream = np.concatenate([np.asarray(sl.prompt, np.int64),
+                                         np.asarray(sl.out[sl.resumed:], np.int64)])
+                prop = np.asarray(spec.draft(sl.rid, stream, q), np.int32)
+                if len(prop):
+                    drafts[s] = prop[:q]
+        # 3. plan and grow (re-plan on any slot rollback)
+        plan = self._plan_grown(sched, alloc, ctx, budget, pchunk, drafts=drafts)
+        if not plan.segments:
+            return []
+        # 4. one verify step, one sync
+        t0 = time.monotonic()
+        prefilling = {s for s, sl in enumerate(sched.slots) if sl.live and sl.prefilling}
+        arrays = pack_verify(plan, block_q, self.sc.max_batch, k, prefilling)
+        out = self._to_host(self._verify(bank, arrays, dev_drafts, block_q))
+        # 5. commit the accepted prefixes, then roll back past rejected rows
+        finished = sched.commit(plan, out[:, :k + 1], n_acc=out[:, k + 1])
+        if isinstance(spec.draft, DraftModel):
+            spec.draft.committed(sched)
+        for seg in plan.segments:
+            sl = sched.slots[seg.slot]
+            if not sl.live or seg.slot not in ctx.seq_of:
+                continue
+            seq = ctx.seq_of[seg.slot]
+            if alloc.seq_len(seq) > sl.kv:
+                alloc.rollback(seq, sl.kv)
+        per_row = (time.monotonic() - t0) / max(plan.n_tokens, 1)
+        spec.row_ewma = per_row if spec.row_ewma is None else 0.7 * spec.row_ewma + 0.3 * per_row
+        return finished
+
     # ---- paged sequential loop ----
     def _serve_paged(self, requests, max_new_tokens: int, priorities=None,
                      deadlines=None) -> List[np.ndarray]:
@@ -724,6 +934,10 @@ class Engine:
         ctx = _PoolCtx(bank.cache)
         bank.state.zero_()
         chunk_n = max(1, min(self.sc.decode_chunk, max_new_tokens))
+        spec_budget = spec_block_q = 0
+        if self._spec is not None:  # a round verifies up to K + 1 rows a slot
+            spec_budget = b * (self._spec.k + 1)
+            spec_block_q = self._varlen_block_q(spec_budget, self._spec.k + 1)
 
         def assign(slot: int) -> bool:
             """Admit the head request into `slot` if the pool can cover it
@@ -780,6 +994,16 @@ class Engine:
                     refill()
                     self.peak_active = sched.note_peak()
                     continue
+                if self._spec is not None:
+                    # a speculative round replaces the decode chunk; pages
+                    # grow per verify segment inside the round
+                    finished = self._spec_round(sched, alloc, ctx, bank, budget=spec_budget,
+                                                pchunk=1, block_q=spec_block_q)
+                    for s in finished:
+                        self._pool_retire(sched, alloc, ctx, s)
+                    refill()
+                    self.peak_active = sched.note_peak()
+                    continue
                 self._grow_live(sched, alloc, ctx, chunk_n)
                 # dead slots step in lockstep on page 0; one sync per chunk
                 toks_np = self._to_host(self._decode_chunk(bank, chunk_n))
@@ -794,15 +1018,13 @@ class Engine:
         return sched.results_list()
 
     # ---- mixed varlen loop ----
-    def _mixed_blocks(self, budget: int, pchunk: int) -> int:
-        """The packer's block_q (the reference's heuristic): decode rows
-        share packs when max_batch > 1, so segments are ~1 row; a lone slot
-        packs one prefill chunk per step."""
+    def _varlen_block_q(self, budget: int, segment_hint: int) -> int:
+        """The packer's block_q for packs of `budget` tokens whose segments
+        are ~`segment_hint` rows (the reference's heuristic)."""
         hd = self.mc.head_dim_
         return choose_varlen_blocks(
             bucket_pow2(budget, lo=8), hd, hd, group=self.mc.n_heads // self.mc.n_kv_heads,
-            page=self._page_layout.page_size,
-            segment_hint=1 if self.sc.max_batch > 1 else pchunk,
+            page=self._page_layout.page_size, segment_hint=segment_hint,
         ).block_q
 
     def _serve_mixed(self, requests, max_new_tokens: int, priorities=None,
@@ -819,9 +1041,17 @@ class Engine:
         alloc, bank = self._paged_state()
         ctx = _PoolCtx(bank.cache)
         budget = self.sc.token_budget or (b + self.sc.prefill_chunk)
+        if self._spec is not None and not self.sc.token_budget:
+            # the default budget funds every slot's K + 1-row verify chain
+            # on top of a prefill chunk, or drafts would never be planned
+            budget = b * (self._spec.k + 1) + self.sc.prefill_chunk
         pchunk = max(1, min(self.sc.prefill_chunk, budget))
         chunk_n = max(1, min(self.sc.decode_chunk, max_new_tokens))
-        block_q = self._mixed_blocks(budget, pchunk)
+        # segments: with > 1 slot decode rows share every pack (~1 row); a
+        # lone slot packs one prefill chunk; with speculation, verify chains
+        seg_hint = (self._spec.k + 1 if self._spec is not None
+                    else 1 if b > 1 else pchunk)
+        block_q = self._varlen_block_q(budget, seg_hint)
 
         def try_admit():
             while (req := sched.head()) is not None:
@@ -851,22 +1081,6 @@ class Engine:
                 if sl.live and not sl.prefilling and s not in ctx.inserted:
                     alloc.insert(ctx.seq_of[s], sl.prompt)
                     ctx.inserted.add(s)
-
-        def plan_grown() -> StepPlan:
-            """Plan a packed step and materialize its pages; a victim
-            preemption invalidates the plan (a dead slot's segment must not
-            run), so re-plan until a growth pass is stable."""
-            while True:
-                plan = sched.plan_step(budget, pchunk)
-                r0 = sched.rollbacks
-                for seg in plan.segments:
-                    end = min(seg.start + len(seg.tokens), self.sc.max_len)
-                    if end > alloc.seq_len(ctx.seq_of[seg.slot]):
-                        self._pool_grow(sched, alloc, ctx, seg.slot, end)
-                    if sched.rollbacks != r0:
-                        break
-                if sched.rollbacks == r0:
-                    return plan
 
         def dispatch(plan: StepPlan) -> np.ndarray:
             """The packed step (the reference's `_mixed_fn`), one graph per
@@ -908,10 +1122,14 @@ class Engine:
                     try_admit()
                     self.peak_active = sched.note_peak()
                     continue
-                if not any(sl.prefilling for sl in sched.slots):
+                if self._spec is not None:
+                    # speculative rounds carry verify chains and prefill chunks
+                    finished = self._spec_round(sched, alloc, ctx, bank, budget=budget,
+                                                pchunk=pchunk, block_q=block_q)
+                elif not any(sl.prefilling for sl in sched.slots):
                     finished = sched.absorb_chunk(decode_chunk_phase())
                 else:
-                    plan = plan_grown()
+                    plan = self._plan_grown(sched, alloc, ctx, budget, pchunk)
                     finished = sched.commit(plan, dispatch(plan)) if plan.segments else []
                 note_prefilled()
                 for s in finished:

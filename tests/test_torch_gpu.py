@@ -530,13 +530,18 @@ def test_engine_kernel_path_matches_plain_path(cuda, arch):
 
 def _paged_pool(gen, dev, lengths, n_tbl, page, hkv, d, dtype=torch.float32):
     """A pool of distinct shuffled pages, page 0 (the garbage page every
-    dead table slot points at) filled with NaN — or, for int8, NaN scales."""
+    dead table slot points at) filled with NaN — or, for a byte pool (int8,
+    fp8 e4m3), NaN scales."""
     b = len(lengths)
     n_pages = b * n_tbl + 1
     shape = (n_pages, page, hkv, d)
-    if dtype == torch.int8:
-        kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
-        vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    if dtype in (torch.int8, torch.float8_e4m3fn):
+        if dtype == torch.int8:
+            kp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+            vp = torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+        else:  # codes across e4m3's range, ±448 saturated
+            kp, vp = ((torch.randn(shape, generator=gen, device=dev) * 100).clamp(-448, 448)
+                      .to(dtype) for _ in range(2))
         ks = torch.rand(n_pages, hkv, generator=gen, device=dev) / 64 + 1e-3
         vs = torch.rand(n_pages, hkv, generator=gen, device=dev) / 64 + 1e-3
         ks[0] = vs[0] = float("nan")
@@ -835,6 +840,15 @@ def test_paged_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k2.flashd_decode_paged(q, kp, kp, tbl.long(), cl)
     with pytest.raises(ValueError, match="int8"):
         k2.flashd_decode_paged(q, kp.to(torch.int8), kp.to(torch.int8), tbl, cl)
+    # a byte pool needs scales; any other pool q's dtype: the text names both formats
+    sc = torch.ones(5, 2, device=cuda)
+    for wrong in (kp.half(), kp.to(torch.float8_e4m3fn)):
+        with pytest.raises(ValueError, match="torch.int8 or torch.float8_e4m3fn"):
+            if wrong.dtype == torch.float16:
+                k2.flashd_decode_paged(q, wrong, wrong, tbl, cl, k_scale=sc, v_scale=sc)
+            else:
+                k4.flashd_varlen(q[:1].expand(4, 4, 64), wrong, wrong, tbl, cl.new_zeros(4),
+                                 cl.new_zeros(4), cl, block_q=4)
     with pytest.raises(ValueError, match="multiple of block_q"):
         k4.flashd_varlen(q[:1].expand(6, 4, 64), kp, kp, tbl, cl.new_zeros(6), cl.new_zeros(6),
                          cl, block_q=4)
@@ -1026,3 +1040,121 @@ def test_captured_temperature_sampling_is_seed_deterministic(cuda):
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
         assert a.max() < cfg.vocab_size
+
+
+# ---- quantized pools (A8) and speculative decoding (A9) ----
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [32, 48, 64, 128])
+def test_paged_kernels_on_fp8_pools(cuda, d, group):
+    """K3 and K4 on an fp8 (e4m3) pool with NaN scales on the garbage page,
+    f32 and bf16 q, every built head dim and group: one launch each, against
+    their plain versions (which dequantize with the scales, x·scale)."""
+    gen = torch.Generator(device=cuda).manual_seed(d * 10 + group)
+    hkv, page, n_tbl = 2, 16, 6
+    full = n_tbl * page
+    lengths = [0, 1, page + 1, full - 3, full]
+    kp, vp, tbl, ks, vs = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d,
+                                      torch.float8_e4m3fn)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn(len(lengths), hkv * group, d, generator=gen, device=cuda)
+    seq_ids, q_pos = _pack(lengths, [0, 1, 5, 16, 37], 8)  # decode, verify, chunk, prompt tail
+    sid, qp = (torch.tensor(x, dtype=torch.int32, device=cuda) for x in (seq_ids, q_pos))
+    qv = torch.randn(len(seq_ids), hkv * group, d, generator=gen, device=cuda)
+    k2.paged_launches = k4.launches = 0
+    for (qx, qvx), tol in (((q, qv), TOL), ((q.bfloat16(), qv.bfloat16()), BF16_TOL)):
+        o = k2.flashd_decode_paged(qx, kp, vp, tbl, cl, k_scale=ks, v_scale=vs)
+        assert torch.isfinite(o).all() and (o[0] == 0).all()
+        _close(o, k2.flashd_decode_paged_plain(qx, kp, vp, tbl, cl, k_scale=ks, v_scale=vs), tol)
+        ov = k4.flashd_varlen(qvx, kp, vp, tbl, sid, qp, cl, k_scale=ks, v_scale=vs, block_q=8)
+        assert torch.isfinite(ov).all() and (ov[qp < 0] == 0).all()
+        _close(ov, k4.flashd_varlen_plain(qvx, kp, vp, tbl, sid, qp, cl, k_scale=ks, v_scale=vs,
+                                          block_q=8), tol)
+    assert (k2.paged_launches, k4.launches) == (2, 2)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_kernels_on_engine_written_pools(cuda, kv_dtype):
+    """A mixed serve writes a quantized pool through both write paths; K3
+    and K4 then read the pages the allocator holds, through its own tables,
+    and agree with their plain versions on those bytes."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=2)
+    rng = np.random.default_rng(4)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (21, 37, 9)]
+    eng = Engine(params, cfg, ServeConfig(max_batch=2, max_len=64, page_size=8,
+                                          step_mode="mixed", kv_dtype=kv_dtype), device=cuda)
+    eng.serve(reqs, 8)
+    eng._alloc.check(eng._paged.cache)
+    chains = eng._alloc.cached_chains()
+    tables = [eng._alloc.match_prefix(np.asarray(c)).pages for c in chains[:2]]
+    lengths = [len(t) * 8 for t in tables]
+    n_tbl = max(map(len, tables))
+    tbl = torch.zeros(len(tables), n_tbl, dtype=torch.int32, device=cuda)
+    for i, t in enumerate(tables):
+        tbl[i, :len(t)] = torch.tensor(t, dtype=torch.int32)
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    leaves = eng._paged.cache["blocks"]["pos0"]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for layer in range(cfg.n_layers):
+        kp, vp, ks, vs = (leaves[n][layer] for n in ("k_pages", "v_pages", "k_scale", "v_scale"))
+        assert kp.dtype == (torch.int8 if kv_dtype == "int8" else torch.float8_e4m3fn)
+        q = torch.randn(len(tables), cfg.n_heads, cfg.head_dim_, generator=g, device=cuda)
+        _close(k2.flashd_decode_paged(q, kp, vp, tbl, cl, k_scale=ks, v_scale=vs),
+               k2.flashd_decode_paged_plain(q, kp, vp, tbl, cl, k_scale=ks, v_scale=vs))
+        seq_ids, q_pos = _pack(lengths, [3, 1], 8)
+        sid, qp = (torch.tensor(x, dtype=torch.int32, device=cuda) for x in (seq_ids, q_pos))
+        qv = torch.randn(len(seq_ids), cfg.n_heads, cfg.head_dim_, generator=g, device=cuda)
+        _close(k4.flashd_varlen(qv, kp, vp, tbl, sid, qp, cl, k_scale=ks, v_scale=vs, block_q=8),
+               k4.flashd_varlen_plain(qv, kp, vp, tbl, sid, qp, cl, k_scale=ks, v_scale=vs,
+                                      block_q=8))
+
+
+SPEC_LOOPS = {
+    "paged-int8": dict(kv_layout="paged", kv_dtype="int8"),
+    "mixed-fp8": dict(step_mode="mixed", kv_dtype="fp8"),
+    "paged-spec": dict(kv_layout="paged", spec_tokens=3),
+    "mixed-int8-spec": dict(step_mode="mixed", kv_dtype="int8", spec_tokens=4),
+}
+
+
+@pytest.mark.parametrize("loop", sorted(SPEC_LOOPS))
+def test_captured_quantized_and_spec_loops_match_eager(cuda, loop):
+    """Smoke widths, f32: under kv_dtype and spec_tokens (a self-draft: the
+    DraftModel's prefill and K-step proposal graphs, K2, and the verify
+    graphs, K4) the captured engine gives the eager engine's tokens, K2–K4
+    launch counts and host syncs on two serve() calls; speculation gives
+    the non-speculative tokens of the same pool."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=12)
+    rng = np.random.default_rng(13)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (7, 30, 9, 21)]
+    kw = dict(SPEC_LOOPS[loop])
+    sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, page_size=8, prefix_cache=False,
+                     **kw)
+    draft = (params, cfg) if sc.spec_tokens else None
+    runs = []
+    for graphs in (None, False):
+        eng = Engine(params, cfg, sc, device=cuda, graphs=graphs, draft=draft)
+        before = launch_counts()
+        outs = [eng.serve(reqs, 8), eng.serve(reqs, 8)]
+        runs.append((outs, tuple(a - b for a, b in zip(launch_counts(), before)),
+                     eng.host_syncs, eng.stats()))
+    (c_out, c_n, c_sync, c_st), (e_out, e_n, e_sync, _) = runs
+    for got, want in zip(c_out, e_out):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert c_n == e_n and c_sync == e_sync
+    mixed, spec = sc.step_mode == "mixed", sc.spec_tokens > 0
+    # K3: the paged loop's steps and the mixed loop's decode chunks (a
+    # speculative mixed loop packs everything); K4: packed and verify steps
+    assert (c_n[1] > 0) == (not (mixed and spec)) and (c_n[2] > 0) == (mixed or spec)
+    if sc.spec_tokens:
+        # the self-draft proposes on K2 over a native cache: it agrees with the
+        # target wholly on a native pool; on a byte pool the target's logits
+        # move with the rounding, so only some drafts pass
+        assert c_n[0] > 0 and c_st["spec_accepted"] > 0
+        assert c_st["spec_acceptance_rate"] == 1.0 or sc.kv_dtype
+        base = Engine(params, cfg, dataclasses.replace(sc, spec_tokens=0), device=cuda)
+        for g, w in zip(c_out[0], base.serve(reqs, 8)):
+            np.testing.assert_array_equal(g, w)

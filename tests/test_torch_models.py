@@ -159,9 +159,9 @@ def test_unported_mixers_raise():
     bad = dataclasses.replace(j_qwen3.SMOKE, pattern=(("ssm", "none"),))
     with pytest.raises(NotImplementedError, match="A12"):
         ttf.init_lm(bridge.config_from_reference(bad), device="cpu")
-    # the paged layout is ported (A5); its quantized pool is not (A8)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttf.init_decode_cache(1, 8, get_smoke_config("qwen3-0.6b"), layout="paged",
-                              kv_dtype="int8", device="cpu")
+    # a quantized pool (A8) needs the paged layout, as the reference's
+    with pytest.raises(ValueError, match="requires layout='paged'"):
+        ttf.init_decode_cache(1, 8, get_smoke_config("qwen3-0.6b"), kv_dtype="int8",
+                              device="cpu")
     with pytest.raises(ValueError, match="layout"):
         ttf.init_decode_cache(1, 8, get_smoke_config("qwen3-0.6b"), layout="ring", device="cpu")

@@ -264,8 +264,14 @@ def test_paged_cache_layout_matches_reference(model):
             assert tuple(tc["blocks"]["pos0"][name].shape) == jc["blocks"]["pos0"][name].shape
         assert tc["blocks"]["pos0"]["tbl"].dtype == torch.int32
         assert (tc["blocks"]["pos0"]["tbl"] == 0).all()  # every row on the garbage page
-    with pytest.raises(NotImplementedError, match="A8"):
-        ttf.init_decode_cache(1, 8, tcfg, layout="paged", kv_dtype="int8", device="cpu")
+    # a quantized pool (A8): byte pages and f32 scale leaves of the reference's shapes
+    for kv_dtype, dt in (("int8", torch.int8), ("fp8", torch.float8_e4m3fn)):
+        jc = jtf.init_decode_cache(3, 24, jcfg, layout="paged", kv_dtype=kv_dtype)
+        tc = ttf.init_decode_cache(3, 24, tcfg, layout="paged", kv_dtype=kv_dtype, device="cpu")
+        for name in ("k_pages", "v_pages", "tbl", "k_scale", "v_scale"):
+            assert tuple(tc["blocks"]["pos0"][name].shape) == jc["blocks"]["pos0"][name].shape
+        assert tc["blocks"]["pos0"]["k_pages"].dtype == dt
+        assert (tc["blocks"]["pos0"]["v_scale"] == 1.0).all()
 
 
 def test_paged_prefill_and_decode_match_reference(model):

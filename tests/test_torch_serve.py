@@ -31,6 +31,16 @@ CONFIGS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One torch thread for this module: the suite runs several pytest
+    workers on the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=sorted(CONFIGS))
 def model(request):
     jcfg = CONFIGS[request.param]
@@ -143,16 +153,18 @@ def test_engine_sampling_is_seed_deterministic(model):
 
 def test_unported_serving_options_raise(model):
     _, _, tcfg, tp = model
-    for kw, item in (({"kv_dtype": "int8"}, "A8"), ({"spec_tokens": 2}, "A9"),
-                     ({"fault_rate": 0.1}, "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            Engine(tp, tcfg, ServeConfig(**kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        Engine(tp, tcfg, ServeConfig(fault_rate=0.1), device="cpu")
     # the paged pools take the reference's defaults, the prefix cache (A7) on
     for kw in ({"kv_layout": "paged"}, {"step_mode": "mixed"}):
         assert Engine(tp, tcfg, ServeConfig(**kw), device="cpu").stats()["prefix_cache_enabled"]
-    with pytest.raises(NotImplementedError, match="A8"):
-        Engine(tp, tcfg, ServeConfig(kv_layout="paged", prefix_cache=False, kv_dtype="int8"),
-               device="cpu")
+    # quantized pools (A8) and speculation (A9) are ported: the reference's checks
+    assert Engine(tp, tcfg, ServeConfig(kv_layout="paged", kv_dtype="fp8"),
+                  device="cpu").stats()["spec_enabled"] is False
+    with pytest.raises(ValueError, match="unknown kv_dtype"):
+        Engine(tp, tcfg, ServeConfig(kv_layout="paged", kv_dtype="int4"), device="cpu")
+    with pytest.raises(ValueError, match="draft"):
+        Engine(tp, tcfg, ServeConfig(kv_layout="paged", spec_tokens=2), device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         Engine(tp, tcfg, ServeConfig(), device="cpu").snapshot()
     # the contiguous loop ignores the prefix-cache flags, as the reference does

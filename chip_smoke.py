@@ -92,6 +92,17 @@ non-zero:
      on an int8 pool, its streams compared with phase 15's int8 run;
      acceptance, tokens per round, tok/s against phase 9's
      non-speculative run, K2 / K3 / K4 launches;
+ 17. fault-tolerant serving at full width, f32, phase 9's requests, on
+     the three captured loops (`_fault_phase`): seeded chaos (every
+     request terminal, DONE streams equal phase 5's tokens, the allocator
+     consistent, no downgrade, faults by site, retries, failures, tok/s
+     beside the fault-free first serve); a crash, `snapshot()`, a fresh
+     engine's `restore()` and `resume()` (phase 5's tokens, prefix hits
+     after the re-warm; restore, re-warm and recapture seconds); a kernel →
+     plain downgrade (one switch, phase 5's tokens, then a serve without
+     faults that launches no K2–K4 kernel); the 4 shortest requests under
+     chaos, no downgrade, on an int8 pool (against phase 15's run of them)
+     and with `OracleDraft` speculation;
  14. (last) the kernels line (JSON), then the result line (JSON).
 
 It exits with code 2, printing no result, when no CUDA device is visible
@@ -379,6 +390,203 @@ def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=())
     return (f"{label}: host {wall_ms:.2f} ms/step, device busy {busy_ms:.3f} ms/step, device "
             f"idle {100 * (1 - busy_ms / wall_ms):.1f}% (device span {span_ms:.3f} ms/step, CUDA "
             f"events); device time by class: {by_class}; by kernel: {top}{watched}")
+
+
+CHAOS_RATE, CHAOS_SEED = 0.1, 17  # phase 17's injector
+# phase 17's chaos runs test the kernels under faults, not the downgrade: its
+# trigger sits above any streak a serve here can reach (a few hundred
+# kernel-site checks in all), and each run asserts no switch
+CHAOS_DOWNGRADE_AFTER = 1 << 20
+CRASH_AFTER = 40  # phase 17's crash: the 41st fault-site check of the serve
+# phase 17's downgrade: three kernel_dispatch faults in a row once four
+# dispatches have run (each loop has launched its kernels by then)
+DOWNGRADE_SCHEDULE = [("kernel_dispatch", i) for i in (4, 5, 6)]
+
+
+def _fault_phase(params, cfg, reqs, base, fault_free_tps, int8_short, dev):
+    """Phase 17: fault-tolerant serving at full width on the three captured
+    loops (contiguous, paged, mixed; max_batch 4, max_len 512, 32 new):
+
+      * chaos: a seeded `FaultInjector` at CHAOS_RATE, no downgrade
+        (CHAOS_DOWNGRADE_AFTER) — every request terminal, DONE streams equal
+        to the fault-free `base`, partial ones prefixes of it, the allocator
+        consistent; faults by site, retries, failures and tok/s beside
+        `fault_free_tps` (the same loop's captured first serve on a fresh
+        engine, phases 5 and 9);
+      * crash: `EngineCrash` after CRASH_AFTER checks, `snapshot()`, a fresh
+        engine's `restore()` (the radix chains re-warmed through its
+        prefill graphs) and `resume()`: the `base` tokens, prefix hits in
+        the paged loops; restore, re-warm and recapture seconds;
+      * downgrade: DOWNGRADE_SCHEDULE — one switch to `flashd_plain`, the
+        `base` tokens; a second serve without faults (the 4 shortest
+        requests, 8 new) launches no K2–K4 kernel;
+      * the 4 shortest requests under chaos, no downgrade, on an int8 pool
+        (the paged loop, against `int8_short`, phase 15's captured run of
+        the same requests) and with `OracleDraft` speculation at 0.5 (paged
+        and mixed).
+
+    Every run on a fresh engine, counts reset just before it; each run's
+    kernels must launch. Returns (the report, K2–K4 launches of all runs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_varlen as k4
+    from repro_torch.runtime.resilience import EngineCrash, FaultInjector
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.graphs import launch_counts
+    from repro_torch.serve.speculative import OracleDraft
+
+    total = {"K2": 0, "K3": 0, "K4": 0}
+    report = []
+    snap_root = os.path.join(HERE, "build", "chip_smoke_snapshots")
+    shutil.rmtree(snap_root, ignore_errors=True)
+
+    def reset():
+        k2.launches = k2.paged_launches = k4.launches = 0
+
+    def launched(label, need):
+        """This run's K2–K4 launches; the loop's kernels must have run."""
+        got = dict(zip(("K2", "K3", "K4"), launch_counts()))
+        for key in need:
+            assert got[key] > 0, (label, got)
+        for key in total:
+            total[key] += got[key]
+        return got
+
+    def held(label, eng, outs, want):
+        """Terminal statuses; DONE streams `want`, the rest prefixes of it;
+        the allocator's invariants; no downgrade."""
+        st = eng.stats()
+        assert st["downgrades"] == 0 and st["attn_impl"] == cfg.attn_impl, (label, st["attn_impl"])
+        status = st["request_status"]
+        assert all(v in ("done", "failed", "expired") for v in status.values()), (label, status)
+        for i, (o, w) in enumerate(zip(outs, want)):
+            full = status[i] == "done"
+            assert np.array_equal(o, w if full else w[: len(o)]), f"{label}: request {i} differs"
+        if eng._alloc is not None:
+            eng._alloc.check(eng._paged.cache)
+        return st
+
+    def timed_serve(eng, requests):
+        t = time.perf_counter()
+        outs = eng.serve(requests, 32)
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t
+
+    def by_site(counts):
+        return {k: counts[k] for k in ("page_alloc", "kernel_dispatch", "device_step", "host_sync")}
+
+    n_serve = sum(len(o) for o in base)
+    short = sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:4]
+    s_reqs, s_base = [reqs[i] for i in short], [base[i] for i in short]
+    # (mode, config, kernels of a whole serve, kernels before the downgrade:
+    # the mixed loop's first steps are packed, its decode chunks come later)
+    loops = (("contiguous", {}, ("K2",), ("K2",)),
+             ("paged", dict(kv_layout="paged"), ("K3",), ("K3",)),
+             ("mixed", dict(step_mode="mixed"), ("K3", "K4"), ("K4",)))
+    for mode, kw, need, down_need in loops:
+        sc = ServeConfig(max_batch=4, max_len=512, **kw)
+        # chaos
+        eng = Engine(params, cfg, dataclasses.replace(sc, downgrade_after=CHAOS_DOWNGRADE_AFTER),
+                     device=dev, fault_injector=FaultInjector(CHAOS_RATE, CHAOS_SEED))
+        reset()
+        outs, dt = timed_serve(eng, reqs)
+        got = launched(f"{mode} chaos", need)
+        st = held(f"{mode} chaos", eng, outs, base)
+        assert sum(st["injected_faults"].values()) > 0, st["injected_faults"]
+        n_done = sum(v == "done" for v in st["request_status"].values())
+        chaos = (f"chaos {n_done}/8 done, {st['failed']} failed, {st['retried']} retries, "
+                 f"{st['downgrades']} downgrades, faults "
+                 f"{by_site(st['injected_faults'])} of checks {by_site(st['fault_checks'])}, "
+                 f"{sum(map(len, outs)) / dt:.1f} tok/s against {fault_free_tps[mode]:.1f} "
+                 f"fault-free ({n_serve} tokens), {eng.host_syncs} host syncs, "
+                 f"{eng._steps.captures} graphs, launches {got}")
+        # crash, snapshot, restore into a fresh engine, resume
+        eng = Engine(params, cfg, sc, device=dev,
+                     fault_injector=FaultInjector(crash_after_checks=CRASH_AFTER))
+        reset()
+        try:
+            eng.serve(reqs, 32)
+        except EngineCrash:
+            pass
+        else:
+            raise AssertionError(f"{mode}: the crash did not fire")
+        if eng._alloc is not None:
+            eng._alloc.check(eng._paged.cache)
+        path = os.path.join(snap_root, mode)
+        eng.snapshot(path)
+        del eng
+        fresh = Engine(params, cfg, sc, device=dev)
+        t = time.perf_counter()
+        state = fresh.restore(path)
+        torch.cuda.synchronize()
+        restore_s, rewarm_capture_s = time.perf_counter() - t, fresh._steps.capture_s
+        t = time.perf_counter()
+        results = fresh.resume()
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+        got = launched(f"{mode} crash + resume", need)
+        for i, w in enumerate(base):
+            assert np.array_equal(results[i], w), f"{mode}: resumed request {i} differs"
+        fst = fresh.stats()
+        if mode != "contiguous":
+            assert fst["hit_tokens"] > 0, (mode, fst["hit_tokens"])
+            fresh._alloc.check(fresh._paged.cache)
+        crash = (f"crash after {CRASH_AFTER} checks: {len(state['pending'])} pending, "
+                 f"{len(state['done'])} done, {len(state['chains'])} chains "
+                 f"({sum(map(len, state['chains']))} tokens); restore (re-warm included) "
+                 f"{restore_s:.2f} s, of which graph captures {rewarm_capture_s:.2f} s; resume "
+                 f"{resume_s:.2f} s, of which recapture {fresh._steps.capture_s - rewarm_capture_s:.2f}"
+                 f" s; {fst['hit_tokens']} resumed prompt tokens cached; tokens equal; launches "
+                 f"{got}")
+        del fresh
+        # the kernel → plain downgrade
+        eng = Engine(params, cfg, dataclasses.replace(sc, downgrade_after=3, max_retries=8),
+                     device=dev, fault_injector=FaultInjector(schedule=DOWNGRADE_SCHEDULE))
+        reset()
+        outs, dt = timed_serve(eng, reqs)
+        st = eng.stats()
+        assert st["downgrades"] == 1 and st["attn_impl"] == "flashd_plain", st["attn_impl"]
+        got = launched(f"{mode} downgrade", down_need)  # the kernels ran before the switch
+        for i, w in enumerate(base):
+            assert np.array_equal(outs[i], w), f"{mode}: request {i} differs after the downgrade"
+        eng._injector = None
+        frozen = launch_counts()
+        for i, o in enumerate(eng.serve(s_reqs, 8)):
+            assert np.array_equal(o, s_base[i][:8]), f"{mode}: plain re-serve request {i} differs"
+        torch.cuda.synchronize()
+        assert launch_counts() == frozen, (mode, launch_counts(), frozen)
+        down = (f"downgrade: 1 switch to {st['attn_impl']}, launches {got}, tokens equal, "
+                f"{n_serve / dt:.1f} tok/s, {eng._steps.captures} graphs; a second serve "
+                f"(4 shortest, 8 new, no faults) launched no K2–K4 kernel")
+        del eng
+        report.append(f"{mode}: {chaos}; {crash}; {down}")
+    shutil.rmtree(snap_root, ignore_errors=True)
+    # the 4 shortest requests: an int8 pool and speculation under chaos
+    cases = [("int8 paged", dict(kv_layout="paged", kv_dtype="int8"), None, int8_short, ("K3",))]
+    for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
+        cases.append((f"OracleDraft 0.5 {mode}", dict(kw, spec_tokens=4),
+                      OracleDraft(s_reqs, s_base, cfg.vocab_size, accuracy=0.5, seed=0), s_base,
+                      ("K4",)))
+    for seed, (label, kw, draft, want, need) in enumerate(cases, CHAOS_SEED + 1):
+        eng = Engine(params, cfg, ServeConfig(max_batch=4, max_len=512,
+                                              downgrade_after=CHAOS_DOWNGRADE_AFTER, **kw),
+                     device=dev, draft=draft, fault_injector=FaultInjector(CHAOS_RATE, seed))
+        reset()
+        outs, dt = timed_serve(eng, s_reqs)
+        got = launched(label, need)
+        st = held(label, eng, outs, want)
+        n_done = sum(v == "done" for v in st["request_status"].values())
+        report.append(f"{label}, 4 shortest: {n_done}/4 done, {st['failed']} failed, "
+                      f"{st['retried']} retries, {st['downgrades']} downgrades, faults "
+                      f"{by_site(st['injected_faults'])}, "
+                      f"{sum(map(len, outs)) / dt:.1f} tok/s, launches {got}"
+                      + (f", acceptance {st['spec_acceptance_rate']:.3f}" if draft else ""))
+        del eng
+    text = (f"fault-tolerant serving, qwen3-0.6b f32 full width, phase 9's 8 requests, 32 new, "
+            f"captured, fault rate {CHAOS_RATE} (seed {CHAOS_SEED}): {'; '.join(report)}")
+    return text, total
 
 
 def main() -> int:
@@ -1330,6 +1538,7 @@ def main() -> int:
 
     short = [reqs[i] for i in sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:4]]
     quant_report, quant_launches, quant_toks, quant_engines = [], {}, {}, {}
+    quant_short = {}  # the captured runs on the 4 shortest requests (phase 17's int8 baseline)
     for kv in ("int8", "fp8"):
         for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
             qsc = ServeConfig(max_batch=4, max_len=512, kv_dtype=kv, **kw)
@@ -1360,6 +1569,7 @@ def main() -> int:
                 == quant.get_spec(kv).dtype
             eng._alloc.check(eng._paged.cache)
             quant_toks[kv, mode], quant_engines[kv, mode] = run["toks"], eng
+            quant_short[kv, mode] = cap["toks"]
             quant_report.append(
                 f"{kv} {mode}: captured {n_serve / run['s']:.1f} tok/s, mean TTFT "
                 f"{run['ttft'] * 1e3:.1f} ms (eager oracle on 4 requests {cap['launched'][1:]} = "
@@ -1623,6 +1833,13 @@ def main() -> int:
               f"run, allocator consistent: {'; '.join(spec_report)}; launches {spec_launches} "
               f"{ph}")
 
+    # ---- 17. fault-tolerant serving (A10) on the three captured loops ----
+    ph = _Phase()
+    fault_tps = {"contiguous": n_serve / kern["serve_s"], **pool_tps}
+    chaos_text, chaos_launches = _fault_phase(params, cfg, reqs, kern["serve"], fault_tps,
+                                              quant_short["int8", "paged"], dev)
+    _line(17, f"{chaos_text} {ph}")
+
     # ---- 14. kernels line, result line ----
     kernels = [
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
@@ -1707,6 +1924,8 @@ def main() -> int:
     for kv in ("f32", "int8", "fp8"):
         kernels[3][f"verify_{kv}_device_ms"] = q_t["K4 verify", kv]
         kernels[3][f"verify_{kv}_bound_ms"] = q_bound["K4 verify", kv]
+    for row, key in ((kernels[1], "K2"), (kernels[2], "K3"), (kernels[3], "K4")):
+        row["fault_phase_launches"] = chaos_launches[key]
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ the kernels read that layout through strides, so nothing here transposes
 a copy. Every op also has a registered fallback with the
 same signature — the plain PyTorch path (`get_fallback`), which the tests
 and the `flashd_plain` impl use; `fallback_impl` maps a kernel impl name to
-it ('flashd_gpu' → 'flashd').
+it ('flashd_gpu' → 'flashd'), `plain_impl` any kernel route to its plain
+impl ('flashd', 'flashd_gpu' → 'flashd_plain'), the engine's downgrade.
 
 The ops launch CUDA kernels and raise on CPU tensors: nothing here picks a
 path by catching an error. `attention_fwd` runs K1 (impl 'flashd') or K6
@@ -41,6 +42,7 @@ __all__ = [
     "register_fallback",
     "get_fallback",
     "fallback_impl",
+    "plain_impl",
     "on_gpu",
 ]
 
@@ -95,6 +97,15 @@ def fallback_impl(attn_impl: str) -> str:
     other impls map to themselves."""
     suffix = "_gpu"
     return attn_impl[: -len(suffix)] if attn_impl.endswith(suffix) else attn_impl
+
+
+def plain_impl(attn_impl: str) -> str:
+    """The plain route of an impl name, the serving engine's downgrade
+    target ('flashd', 'flashd_gpu' → 'flashd_plain'; 'fa2', 'fa2_gpu' →
+    'fa2_plain'): unlike `fallback_impl`, it launches no kernel on a CUDA
+    tensor. Other impls map to themselves."""
+    family = attn_impl[: -len("_gpu")] if attn_impl.endswith("_gpu") else attn_impl
+    return f"{family}_plain" if family in ("flashd", "fa2") else attn_impl
 
 
 def on_gpu() -> bool:

@@ -9,10 +9,14 @@
     # a quantized page pool; speculative decoding with a draft model:
     ... --kv-layout paged --kv-dtype int8
     ... --step-mode mixed --spec-tokens 4 --draft-config qwen3-0.6b
+    # seeded chaos at the four fault sites, lifecycle budgets per request:
+    ... --kv-layout paged --fault-rate 0.1 --fault-seed 3 --max-retries 3 \
+        --deadline-ms 60000
 
 Runs on the card unless `--device cpu` is given (then at `--smoke` widths,
 as a check of the control flow). On the card the engine replays its steps
-as captured CUDA graphs. Prints each request's tokens, the
+as captured CUDA graphs. Prints each request's tokens and terminal
+status (done / failed / expired), the retry and downgrade counters, the
 throughput and the per-request time-to-first-token, as the reference
 launcher does. Real checkpoints are not in the repository: the weights
 are drawn from `--seed`.
@@ -74,6 +78,15 @@ def main(argv=None):
     p.add_argument("--no-spec", action="store_true",
                    help="force speculation off even if --spec-tokens is set (an A/B against "
                         "the same command line)")
+    p.add_argument("--deadline-ms", type=float, default=0.0,
+                   help="per-request deadline in milliseconds (0 → none); an overdue request "
+                        "is cancelled like EOS with status 'expired'")
+    p.add_argument("--max-retries", type=int, default=3,
+                   help="fault-retry budget per request before it goes terminal-FAILED")
+    p.add_argument("--fault-rate", type=float, default=0.0,
+                   help="chaos injection: probability each fault-site check fires (0 → none)")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="seed of the deterministic fault injector")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -104,6 +117,10 @@ def main(argv=None):
         prefix_cache=not args.no_prefix_cache,
         preemption=not args.no_preemption,
         spec_tokens=spec_tokens,
+        max_retries=args.max_retries,
+        deadline_s=args.deadline_ms / 1e3,
+        fault_rate=args.fault_rate,
+        fault_seed=args.fault_seed,
     ), device=device, draft=draft)
     rng = np.random.default_rng(args.seed)
     reqs = [rng.integers(0, cfg.vocab_size, (args.prompt_len,)).astype(np.int32)
@@ -136,6 +153,12 @@ def main(argv=None):
               f"{st['host_syncs']} host syncs; prefix cache "
               f"{'on' if st['prefix_cache_enabled'] else 'off'}, {st['hit_tokens']} of "
               f"{st['prompt_tokens']} prompt tokens cached")
+    if args.fault_rate > 0 or args.deadline_ms > 0 or st["retried"]:
+        n_done = sum(s == "done" for s in status.values())
+        print(f"fault tolerance: {n_done}/{len(outs)} done, {st['failed']} failed, "
+              f"{st['expired']} expired, {st['retried']} retries, {st['downgrades']} downgrades "
+              f"(impl now {st['attn_impl']}), faults fired {st.get('injected_faults', {})} "
+              f"of checks {st.get('fault_checks', {})}")
     if st["spec_enabled"]:
         print(f"speculation: {st['spec_rounds']} rounds, {st['spec_accepted']} of "
               f"{st['spec_drafted']} drafts accepted (rate {st['spec_acceptance_rate']:.2f}, "

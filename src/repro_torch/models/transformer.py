@@ -14,10 +14,11 @@ pool [L, P, page, Hkv, hd] per layer plus block tables [L, B, N]; every
 layer holds the same table; a quantized pool stores bytes with per-(page,
 kv head) scales [L, P, Hkv]). They are updated IN PLACE (`index_put` into
 the stacked tensors), where the reference rebuilt them functionally, so
-decode and `forward_packed` return the cache object they were given. The
-fault-tolerant retry of a later slice (A10) needs the reference's
-commit-after-sync discipline back: a step that is retried must not see
-its own writes.
+decode and `forward_packed` return the cache object they were given. A
+step writes K/V only at positions at or past each sequence's committed
+length and reads a position only after writing it, so the serving
+engine's fault retry (`serve/engine.py`) re-runs a faulted step exactly
+over its own stale rows.
 """
 
 from __future__ import annotations

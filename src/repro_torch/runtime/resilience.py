@@ -17,8 +17,10 @@ checkpoints through `repro_torch.runtime.checkpoint`).
 * `FaultInjector` — deterministic, seeded chaos: raises `InjectedFault` at
   named sites, probabilistically (`rate`) or on an explicit per-site
   occurrence `schedule`. The training sites (`TRAIN_SITES`) are checked by
-  the resilient train loop; the serving sites wait for the serving fault
-  path (A10).
+  the resilient train loop, the serving sites (page_alloc,
+  kernel_dispatch, device_step, host_sync) by the serve loops
+  (`repro_torch.serve.engine`); `crash_after_checks` raises one
+  `EngineCrash`, which the engine does not absorb.
 
 * `DivergenceRollback` — raised by the train loop's loss-spike detector;
   retryable, so the supervisor restores the last good checkpoint.

@@ -64,10 +64,32 @@ Host syncs: `generate` keeps every token on the device and copies them to
 the host once (`host_syncs` counts each device→host copy); the sequential
 loops sync once per prefill and once per `decode_chunk` decode steps; the
 mixed loop once per packed step or decode chunk; a speculative round once.
-Caches are updated in place, so a step is committed before its sync (the
-reference commits after it; fault retry, A10, needs that back).
 
-Not ported yet, and refused: fault injection and snapshot / restore (A10).
+Fault tolerance, as the reference's: every request ends DONE, FAILED
+(retry budget `max_retries` spent) or EXPIRED (deadline). A seeded
+`FaultInjector` (`fault_rate` / `fault_seed`, or `Engine(fault_injector=)`)
+is checked at the reference's four sites in the reference's order:
+`page_alloc` before an admission or a growth, `kernel_dispatch` before a
+step, `device_step` after it, `host_sync` at its sync (`_sync`). A fault in
+one request's work (an admission, a prefill, a growth) re-queues that
+request alone; a step-wide fault discards the step and retries it, and
+after `max_retries` faulted steps in a row the scheduler's victim is
+charged a retry. Commit-after-sync: the host state (scheduler, allocator,
+radix tree) advances only after a step's sync, and the device state a step
+advances in place — the sequential loops' decode state `tok` / `pos` — is
+re-staged from the scheduler's committed state after a faulted step
+(`_restage`, through `StepGraphs.put`); the K/V rows a faulted step wrote
+sit at positions at or past each slot's committed length, which the retry
+rewrites before any row reads them (a byte pool's slot-0 scale included)
+and which no donation covers (only the full pages of the committed stream
+reach the radix tree). A crash (any other exception) folds the live slots
+back into the queue and keeps the pool, the tree and the captured graphs
+warm; `snapshot()` / `restore()` / `resume()` carry the unfinished
+requests and the tree's token chains through `runtime/checkpoint.py` in
+the reference's format, and `restore()` recomputes the chains' KV. After
+`downgrade_after` consecutive kernel-site faults the engine switches to
+the plain attention route (`kernels.ops.plain_impl`) and drops every
+graph it captured; only an `InjectedFault` counts, a real error raises.
 """
 
 from __future__ import annotations
@@ -80,6 +102,7 @@ import numpy as np
 import torch
 
 from repro_torch.devices import resolve_device
+from repro_torch.kernels.ops import plain_impl
 from repro_torch.kernels.tuning import (
     bucket_pow2,
     choose_cache_policy,
@@ -97,6 +120,7 @@ from repro_torch.models.transformer import (
 )
 from repro_torch.runtime import quant
 from repro_torch.runtime.kvcache import CachePolicy, PagedKVAllocator, PageError, pages_for
+from repro_torch.runtime.resilience import FaultInjector, InjectedFault, StragglerMonitor
 from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.scheduler import Request, Scheduler, StepPlan
 
@@ -140,8 +164,13 @@ class ServeConfig:
     # packed step; 0 disables. Needs Engine(draft=...), greedy sampling and
     # a paged, packed-capable stack
     spec_tokens: int = 0
+    # ---- fault tolerance ----
+    max_retries: int = 3  # per-request fault-retry budget (then FAILED)
+    retry_backoff_s: float = 0.0  # base of the exponential requeue backoff
     deadline_s: float = 0.0  # default per-request deadline; 0 → none
-    fault_rate: float = 0.0  # chaos injection: A10
+    fault_rate: float = 0.0  # chaos: per-site injected-fault probability
+    fault_seed: int = 0  # chaos: the injector's stream seed
+    downgrade_after: int = 3  # consecutive kernel-site faults before the plain route
 
 
 def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -278,19 +307,20 @@ class _PoolCtx:
 
 class Engine:
     def __init__(self, params: dict, model_cfg: ModelConfig, serve_cfg: ServeConfig,
-                 *, device=None, graphs: Optional[bool] = None, draft=None):
+                 *, device=None, graphs: Optional[bool] = None, draft=None,
+                 fault_injector: Optional[FaultInjector] = None):
         """`graphs`: replay the steps as captured CUDA graphs (None → on a
         CUDA engine, eager on the CPU; False → eager on the card too, the
         oracle; True on the CPU raises). `draft` (with `spec_tokens` > 0):
         a (params, ModelConfig) pair for a draft model, a `DraftModel`, or a
-        host callable fn(rid, tokens, k) → proposals."""
+        host callable fn(rid, tokens, k) → proposals. `fault_injector`:
+        the chaos source (default: one of `fault_rate` / `fault_seed` when
+        the rate is above 0, else none)."""
         if serve_cfg.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {serve_cfg.kv_layout!r}")
         if serve_cfg.step_mode not in ("sequential", "mixed"):
             raise ValueError(f"unknown step_mode {serve_cfg.step_mode!r}")
         pooled = serve_cfg.kv_layout == "paged" or serve_cfg.step_mode == "mixed"
-        if serve_cfg.fault_rate > 0:
-            raise NotImplementedError("ServeConfig.fault_rate not ported (A10)")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -309,8 +339,20 @@ class Engine:
         self.ttft = {}  # rid → time-to-first-token of the last serve() call
         self._stats = {"prefix_lookups": 0, "prefix_hits": 0, "hit_tokens": 0,
                        "prompt_tokens": 0, "preemptions": 0, "failed": 0, "retried": 0,
-                       "expired": 0, "spec_rounds": 0, "spec_drafted": 0, "spec_accepted": 0}
-        self._sched: Optional[Scheduler] = None
+                       "expired": 0, "downgrades": 0,
+                       "spec_rounds": 0, "spec_drafted": 0, "spec_accepted": 0}
+        self._sched: Optional[Scheduler] = None  # the last or current serve()'s
+        # fault tolerance: the injector, the consecutive kernel-site faults
+        # (downgrade) and faulted steps (victim charging), the step watchdog,
+        # and a restored snapshot waiting for resume()
+        if fault_injector is None and serve_cfg.fault_rate > 0:
+            fault_injector = FaultInjector(serve_cfg.fault_rate, serve_cfg.fault_seed)
+        self._injector = fault_injector
+        self._kernel_faults = 0
+        self._step_faults = 0
+        self._step_no = 0
+        self._watchdog = StragglerMonitor()  # its flagged steps are stats()["slow_steps"]
+        self._resume_state: Optional[dict] = None
         # paged geometry (paged or mixed engines with a global-attention layer)
         self._page_layout = None
         if pooled and paged_mixers(model_cfg):
@@ -367,6 +409,78 @@ class Engine:
         self.host_syncs += 1
         return x.cpu().numpy()
 
+    # ---- fault injection and the downgrade (the reference's sites) ----
+    def _inj(self, site: str, rid: Optional[int] = None) -> None:
+        if self._injector is not None:
+            self._injector.check(site, rid=rid)
+
+    def _sync(self, x: torch.Tensor, rid: Optional[int] = None) -> np.ndarray:
+        """A serve loop's device→host copy: the host_sync fault site."""
+        self._inj("host_sync", rid)
+        return self._to_host(x)
+
+    def _step_done(self) -> None:
+        """A step synced: the watchdog times it and the fault streaks end."""
+        self._step_no += 1
+        self._watchdog.end_step(self._step_no)
+        self._clear_fault_streak()
+
+    def _note_fault(self, exc: InjectedFault) -> None:
+        """Count an injected fault; `downgrade_after` consecutive kernel-site
+        faults switch a kernel route to its plain one."""
+        if exc.site in ("kernel_dispatch", "device_step"):
+            self._kernel_faults += 1
+            if self._kernel_faults >= self.sc.downgrade_after:
+                self._downgrade()
+
+    def _clear_fault_streak(self) -> None:
+        self._kernel_faults = 0
+        self._step_faults = 0
+
+    def _downgrade(self) -> None:
+        """Switch attention to the plain route for the engine's life
+        (`plain_impl`: flashd, flashd_gpu → flashd_plain; fa2, fa2_gpu →
+        fa2_plain) and drop every captured graph — they hold the kernels'
+        launches — so the next run of each step captures the plain one. A
+        draft model's engine switches with it. Counted in
+        `stats()["downgrades"]`, the route in `["attn_impl"]`."""
+        from repro_torch.serve.speculative import DraftModel  # lazy: no cycle
+
+        fb = plain_impl(self.mc.attn_impl)
+        if fb == self.mc.attn_impl:
+            return
+        self._stats["downgrades"] += 1
+        self.mc = dataclasses.replace(self.mc, attn_impl=fb)
+        self.api = get_model(self.mc)
+        for bank in (*self._contig.values(), self._paged):
+            if bank is not None:
+                bank.graphs.clear()
+        if self._spec is not None and isinstance(self._spec.draft, DraftModel):
+            self._spec.draft.runner._downgrade()
+        self._kernel_faults = 0
+
+    def _on_step_fault(self, sched: Scheduler, exc: InjectedFault, release) -> None:
+        """A step-wide injected fault: the step is discarded and retried
+        (its host state never advanced). After `max_retries` faulted steps
+        in a row the scheduler's victim is charged one retry through
+        `release`, which also gives its memory back, so a hostile schedule
+        still makes progress."""
+        self._note_fault(exc)
+        self._step_faults += 1
+        if self._step_faults > sched.max_retries:
+            self._step_faults = 0
+            v = sched.victim_slot()
+            if v is not None:
+                release(v)
+
+    def _restage(self, bank: _Bank, sched: Scheduler) -> None:
+        """Stage the decode state tok / pos from the scheduler's committed
+        host state (each slot's pending token and KV length; dead slots 0):
+        the mixed loop's chunk input, and the sequential loops' undo of a
+        faulted chunk, which advanced them in place."""
+        self._steps.put(bank.state, [[sl.pending for sl in sched.slots],
+                                     [sl.kv for sl in sched.slots]])
+
     def _await_backoff(self, sched: Scheduler) -> bool:
         """No live slot: sleep until the earliest queued request is
         eligible; False when the queue is empty too (serving is over)."""
@@ -383,6 +497,7 @@ class Engine:
         sched = Scheduler(
             requests, max_new_tokens, self.sc.max_batch, self.sc.eos_id,
             priorities=priorities, deadlines=deadlines,
+            max_retries=self.sc.max_retries, retry_backoff_s=self.sc.retry_backoff_s,
         )
         self._sched = sched
         return sched
@@ -415,6 +530,10 @@ class Engine:
         s["ttft"] = dict(self.ttft)
         s["attn_impl"] = self.mc.attn_impl
         s["host_syncs"] = self.host_syncs
+        s["slow_steps"] = len(self._watchdog.flagged)
+        if self._injector is not None:
+            s["injected_faults"] = dict(self._injector.fired)
+            s["fault_checks"] = dict(self._injector.calls)
         if self._alloc is not None:
             s.update(evictions=self._alloc.evictions, donated_pages=self._alloc.donated_pages,
                      cached_pages=self._alloc.cached_pages,
@@ -431,10 +550,124 @@ class Engine:
             s["request_status"] = dict(self._sched.status)
         return s
 
-    def snapshot(self, *_args, **_kwargs):
-        raise NotImplementedError("snapshot / restore not ported (A10)")
+    # ---- crash recovery: snapshot / restore / resume (the reference's format) ----
+    def snapshot(self, ckpt_dir: str, *, step: int = 0) -> str:
+        """Write the last serve() call's surviving state as a metadata-only
+        checkpoint (`runtime/checkpoint.py`, no arrays): the unfinished
+        requests (a live slot folds in as a preemption would: prompt and
+        the tokens generated so far), the finished results and statuses,
+        the radix tree's token chains and the pool geometry. No KV: it is
+        a function of the token stream, which `restore()` recomputes.
+        Valid after a crash (serve() folds live slots into the queue
+        before it re-raises) or between serves."""
+        from repro_torch.runtime import checkpoint as ckpt
 
-    restore = resume = snapshot
+        sched = self._sched
+        if sched is None:
+            raise RuntimeError("snapshot() before any serve()")
+        now = sched.now()
+        pending = [Request(rid=sl.rid, prompt=np.asarray(sl.orig_prompt), out=list(sl.out),
+                           priority=sl.priority, deadline=sl.deadline, retries=sl.retries)
+                   for sl in sched.slots if sl.live] + list(sched.queue)
+        state = {
+            "pending": sorted((
+                {"rid": int(r.rid),
+                 "prompt": np.asarray(r.prompt).astype(int).tolist(),
+                 "out": [int(t) for t in r.out],
+                 "priority": int(r.priority),
+                 # deadlines and backoff gates persist as the seconds still
+                 # remaining: a restored scheduler's clock starts at zero
+                 "deadline": (max(0.0, float(r.deadline) - now)
+                              if r.deadline is not None else None),
+                 "not_before": max(0.0, float(r.not_before) - now),
+                 "retries": int(r.retries)}
+                for r in pending), key=lambda d: d["rid"]),
+            "done": {str(i): np.asarray(r).astype(int).tolist()
+                     for i, r in enumerate(sched.results) if r is not None},
+            "status": {str(k): v for k, v in sched.status.items()},
+            "max_new_tokens": int(sched.max_new_tokens),
+            "seq_base": int(self._seq_base),
+            "chains": (self._alloc.cached_chains()
+                       if self._alloc is not None and self._cache_on else []),
+            "pool": ({"page_size": self._page_layout.page_size,
+                      "n_pages": self._page_layout.n_pages}
+                     if self._page_layout is not None else None),
+        }
+        return ckpt.save(ckpt_dir, step, None, extra={"engine_serve": state})
+
+    def restore(self, ckpt_dir: str, *, step: Optional[int] = None) -> dict:
+        """Load a `snapshot()` (the port's or the reference's) into this
+        engine, usually a fresh one: keep its pending requests for
+        `resume()` and re-warm the radix prefix cache by replaying the
+        token chains through prefill (`_rewarm`), on a pool of the same
+        page size only. Returns the raw state dict."""
+        from repro_torch.runtime import checkpoint as ckpt
+
+        _, extra = ckpt.restore(ckpt_dir, None, step=step)
+        state = extra["engine_serve"]
+        self._seq_base = max(self._seq_base, int(state.get("seq_base", 0)))
+        pool = state.get("pool")
+        chains = state.get("chains") or []
+        if (chains and self._cache_on and pool is not None
+                and int(pool["page_size"]) == self._page_layout.page_size):
+            self._rewarm(chains)
+        self._resume_state = state
+        return state
+
+    def resume(self) -> dict:
+        """Finish the restored snapshot's pending requests in one serve()
+        (deadlines, backoff gates and retry budgets carried over) and return
+        every result keyed by its original request id; finished requests
+        come from the snapshot. Resumed requests recompute their streams, so
+        the tokens are the uninterrupted run's."""
+        state = self._resume_state
+        if state is None:
+            raise RuntimeError("resume() before restore()")
+        self._resume_state = None
+        done = {int(k): np.asarray(v, np.int32) for k, v in state["done"].items()}
+        pending = state["pending"]
+        if pending:
+            reqs = [Request(rid=i, prompt=np.asarray(p["prompt"], np.int32), out=list(p["out"]),
+                            priority=int(p["priority"]), deadline=p["deadline"],
+                            retries=int(p["retries"]),
+                            not_before=float(p.get("not_before", 0.0)))
+                    for i, p in enumerate(pending)]
+            outs = self.serve(reqs, int(state["max_new_tokens"]),
+                              deadlines=[p["deadline"] for p in pending])
+            for p, o in zip(pending, outs):
+                done[int(p["rid"])] = o
+        return done
+
+    def _rewarm(self, chains) -> None:
+        """Replay radix-tree token chains into the pool: a scratch sequence
+        on slot 0's table row prefills each chain's full pages through the
+        prefill graphs and donates them to the tree. Longest first, so
+        shorter chains ride their cached prefixes; a chain that no longer
+        fits is skipped (the cache is performance state, not correctness)."""
+        with torch.inference_mode():
+            alloc, bank = self._paged_state()
+            page = self._page_layout.page_size
+            cap = (self.sc.max_len // page) * page
+            for chain in sorted(chains, key=len, reverse=True):
+                toks = np.asarray(chain[:cap], np.int64)
+                n = (len(toks) // page) * page
+                if n < page:
+                    continue
+                toks = toks[:n]
+                m = alloc.match_prefix(toks)
+                if m.n_tokens >= n:
+                    continue  # covered by a longer chain's replay
+                cached = m if m.n_tokens > 0 else None
+                if not alloc.can_admit(n, cached=cached):
+                    continue
+                seq = self._seq_base
+                self._seq_base += 1
+                alloc.admit(seq, prompt_len=n, reserve_tokens=n, cached=cached)
+                start = cached.n_tokens if cached is not None else 0
+                self._set_tbl_row(bank.cache, 0, alloc.table(seq))
+                self._prefill(bank, 0, toks[None, start:], start)
+                alloc.donate(seq, toks)
+                self._set_tbl_row(bank.cache, 0, [])
 
     # ---- the steps, over static buffers (one graph each on the card) ----
     def _contiguous(self, b: int) -> _Bank:
@@ -561,13 +794,24 @@ class Engine:
             region (zeroed first, as the reference's fresh one-row cache).
             The prefill's sampled token is output token 0; a resumed request
             replays its pre-preemption tokens. Requests that complete at
-            once are finalized and the next is taken."""
+            once are finalized and the next is taken. An injected fault
+            re-queues the request in hand (or fails it) and takes the next:
+            the live slots never see it."""
             while (req := sched.take_head()) is not None:
                 toks = np.asarray(req.tokens)
                 self._check_len(req.rid, len(req.prompt), max_new_tokens)
-                for _, leaf in _leaves(_slot_view(bank.cache, slot)):
-                    leaf.zero_()
-                t0 = int(self._to_host(self._prefill(bank, slot, toks[None], 0))[0])
+                try:
+                    self._inj("kernel_dispatch", req.rid)
+                    for _, leaf in _leaves(_slot_view(bank.cache, slot)):
+                        leaf.zero_()
+                    first = self._prefill(bank, slot, toks[None], 0)
+                    self._inj("device_step", req.rid)
+                    t0 = int(self._sync(first, rid=req.rid)[0])
+                except InjectedFault as e:
+                    self._note_fault(e)
+                    sched.retry_request(req)
+                    continue
+                self._clear_fault_streak()
                 if not sched.admit_request(slot, req, t0):
                     continue
                 bank.tok[slot] = t0
@@ -593,22 +837,41 @@ class Engine:
                     assign(s)
             preempt_for_priority()
 
-        refill()
-        self.peak_active = sched.note_peak()
-        while sched.has_active() or sched.queue:
-            for s in sched.expire_overdue():
-                sched.retire(s)  # the slot's cache region just goes stale
-            if not sched.has_active():
-                if not self._await_backoff(sched):
-                    break
-                refill()
-                continue
-            toks_np = self._to_host(self._decode_chunk(bank, chunk_n))  # one sync per chunk
-            for s in sched.absorb_chunk(toks_np):
-                sched.retire(s)
-                assign(s)  # overwrites the slot's cache / tok / pos
-            preempt_for_priority()
+        try:
+            refill()
             self.peak_active = sched.note_peak()
+            while sched.has_active() or sched.queue:
+                for s in sched.expire_overdue():
+                    sched.retire(s)  # the slot's cache region just goes stale
+                if not sched.has_active():
+                    if not self._await_backoff(sched):
+                        break
+                    refill()
+                    continue
+                self._watchdog.start_step()
+                try:
+                    self._inj("kernel_dispatch")
+                    out = self._decode_chunk(bank, chunk_n)
+                    self._inj("device_step")
+                    toks_np = self._sync(out)  # one sync per chunk
+                except InjectedFault as e:
+                    # discard the step: undo its tok / pos, then retry it
+                    self._on_step_fault(sched, e, sched.fault_slot)
+                    self._restage(bank, sched)
+                    continue
+                self._step_done()
+                for s in sched.absorb_chunk(toks_np):
+                    sched.retire(s)
+                    assign(s)  # overwrites the slot's cache / tok / pos
+                preempt_for_priority()
+                self.peak_active = sched.note_peak()
+        except Exception:
+            # crash recovery: fold the live slots back into the queue, so a
+            # snapshot() sees every unfinished request
+            for s, sl in enumerate(sched.slots):
+                if sl.live:
+                    sched.preempt(s)
+            raise
         self._finish_serve(sched)
         return sched.results_list()
 
@@ -639,12 +902,32 @@ class Engine:
             self._paged = _Bank(cache, self.sc.max_batch, self.device)
         return self._alloc, self._paged
 
-    def _drop_paged_state(self) -> None:
-        """A serve() that raised leaves its sequences in the allocator: drop
-        the pool, its cached prefixes and its graphs, and start the next
-        call cold (the reference folds live slots back into the queue and
-        keeps the pool warm — A10)."""
-        self._alloc = self._paged = None
+    def _recover_paged(self, sched: Scheduler, alloc, ctx: _PoolCtx) -> None:
+        """Crash recovery (the reference's `_recover_paged`): roll every
+        live slot back into the queue, its pages donated (their KV is
+        committed state), free the sequences admitted but never bound to a
+        slot, park every table row on the garbage page, and keep the
+        allocator, the radix tree, the pool and the captured graphs: the
+        next serve() — or a snapshot's successor — starts warm, and
+        `alloc.check()` holds."""
+        for s, sl in enumerate(sched.slots):
+            if sl.live and s in ctx.seq_of:
+                try:
+                    self._pool_preempt(sched, alloc, ctx, s)
+                except Exception:  # unstructured damage: the sweep below frees it
+                    ctx.seq_of.pop(s, None)
+            elif sl.live:
+                sched.preempt(s)  # bound to the slot but not to the pool
+        alloc.reset_live()
+        for s in range(len(sched.slots)):
+            self._set_tbl_row(ctx.cache, s, [])
+
+    def _pool_fault_slot(self, sched: Scheduler, alloc, ctx: _PoolCtx, s: int) -> None:
+        """Fault rollback of a live slot: `_pool_preempt`'s memory motion,
+        but the requeue is charged to the request's retry budget (FAILED
+        when it is spent)."""
+        self._pool_release(sched, alloc, ctx, s)
+        sched.fault_slot(s)
 
     def _set_tbl_row(self, cache, slot: int, table: List[int]) -> None:
         """Mirror one slot's allocator block table into every layer's `tbl`
@@ -718,11 +1001,18 @@ class Engine:
 
     def _grow_live(self, sched: Scheduler, alloc, ctx: _PoolCtx, chunk_n: int) -> None:
         """Pages for the next `chunk_n` decode writes of every live slot
-        (clamped to max_len: writes past the table land on page 0)."""
+        (clamped to max_len: writes past the table land on page 0). A
+        growth fault rolls back that slot alone."""
         for s in range(self.sc.max_batch):
             sl = sched.slots[s]
-            if sl.live:
+            if not sl.live:
+                continue
+            try:
+                self._inj("page_alloc", sl.rid)
                 self._pool_grow(sched, alloc, ctx, s, min(sl.kv + chunk_n, self.sc.max_len))
+            except InjectedFault as e:
+                self._note_fault(e)
+                self._pool_fault_slot(sched, alloc, ctx, s)
 
     def _pool_reserve(self, req: Request, max_new_tokens: int, chunk_n: int) -> int:
         """Admission reservation: just the prompt under preemption
@@ -771,7 +1061,10 @@ class Engine:
         evict / preempt lower-priority victims as needed. Returns (the new
         allocator sequence, the cached prefix or None) — the request taken
         off the queue — or None when the head must wait (then nothing
-        changed), raising when nothing live could ever free enough."""
+        changed), raising when nothing live could ever free enough. The
+        page_alloc site sits between taking the head and admitting it: an
+        `InjectedFault` leaves the request in the caller's hands, off the
+        queue, with nothing allocated."""
         toks = req.tokens
         while True:
             self._check_len(req.rid, len(req.prompt), max_new_tokens)
@@ -789,26 +1082,32 @@ class Engine:
             raise PageError(f"request {req.rid} needs {pages_for(reserve, alloc.page_size)}"
                             f" pages but the pool holds {self._page_layout.n_pages - 1}")
         sched.take_head()
+        self._inj("page_alloc", req.rid)
         seq = self._seq_base
         self._seq_base += 1
         alloc.admit(seq, prompt_len=len(toks), reserve_tokens=reserve, cached=cached)
-        self._note_admission(toks, cached)
         return seq, cached
 
     # ---- packed-step planning and speculative rounds ----
     def _plan_grown(self, sched: Scheduler, alloc, ctx: _PoolCtx, budget: int, pchunk: int,
                     drafts=None) -> StepPlan:
-        """Plan a packed step and materialize its pages; a victim preemption
-        invalidates the plan (a dead slot's segment must not run), so re-plan
-        until a growth pass is stable. `drafts` adds speculative draft rows
-        (plan_step funds them from leftover budget only)."""
+        """Plan a packed step and materialize its pages; any slot rollback —
+        a victim preemption, a growth fault's requeue, a spent retry budget
+        — invalidates the plan (a dead slot's segment must not run), so
+        re-plan until a growth pass is stable. `drafts` adds speculative
+        draft rows (plan_step funds them from leftover budget only)."""
         while True:
             plan = sched.plan_step(budget, pchunk, drafts=drafts)
             r0 = sched.rollbacks
             for seg in plan.segments:
                 end = min(seg.start + len(seg.tokens), self.sc.max_len)
-                if end > alloc.seq_len(ctx.seq_of[seg.slot]):
-                    self._pool_grow(sched, alloc, ctx, seg.slot, end)
+                try:
+                    if end > alloc.seq_len(ctx.seq_of[seg.slot]):
+                        self._inj("page_alloc", sched.slots[seg.slot].rid)
+                        self._pool_grow(sched, alloc, ctx, seg.slot, end)
+                except InjectedFault as e:
+                    self._note_fault(e)
+                    self._pool_fault_slot(sched, alloc, ctx, seg.slot)
                 if sched.rollbacks != r0:
                     break
             if sched.rollbacks == r0:
@@ -897,11 +1196,15 @@ class Engine:
         plan = self._plan_grown(sched, alloc, ctx, budget, pchunk, drafts=drafts)
         if not plan.segments:
             return []
-        # 4. one verify step, one sync
+        # 4. one verify step, one sync; a fault here discards the round
+        #    before anything below commits it (the draft's state included)
         t0 = time.monotonic()
         prefilling = {s for s, sl in enumerate(sched.slots) if sl.live and sl.prefilling}
         arrays = pack_verify(plan, block_q, self.sc.max_batch, k, prefilling)
-        out = self._to_host(self._verify(bank, arrays, dev_drafts, block_q))
+        self._inj("kernel_dispatch")
+        res = self._verify(bank, arrays, dev_drafts, block_q)
+        self._inj("device_step")
+        out = self._sync(res)
         # 5. commit the accepted prefixes, then roll back past rejected rows
         finished = sched.commit(plan, out[:, :k + 1], n_acc=out[:, k + 1])
         if isinstance(spec.draft, DraftModel):
@@ -934,6 +1237,10 @@ class Engine:
         ctx = _PoolCtx(bank.cache)
         bank.state.zero_()
         chunk_n = max(1, min(self.sc.decode_chunk, max_new_tokens))
+
+        def fault_slot(v: int) -> None:
+            self._pool_fault_slot(sched, alloc, ctx, v)
+
         spec_budget = spec_block_q = 0
         if self._spec is not None:  # a round verifies up to K + 1 rows a slot
             spec_budget = b * (self._spec.k + 1)
@@ -942,16 +1249,35 @@ class Engine:
         def assign(slot: int) -> bool:
             """Admit the head request into `slot` if the pool can cover it
             and prefill its uncached tail there; False (queue intact) when
-            it must wait."""
+            it must wait. An injected fault re-queues the request in hand;
+            a faulted prefill's pages are freed, never donated (they may
+            hold rows of a step that did not commit)."""
             while (req := sched.head()) is not None:
-                got = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
+                try:
+                    got = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
+                except InjectedFault as e:
+                    self._note_fault(e)
+                    sched.retry_request(req)
+                    continue
                 if got is None:
                     return False
                 seq, cached = got
                 toks = np.asarray(req.tokens)
                 start = cached.n_tokens if cached is not None else 0
                 self._set_tbl_row(ctx.cache, slot, alloc.table(seq))
-                t0 = int(self._to_host(self._prefill(bank, slot, toks[None, start:], start))[0])
+                try:
+                    self._inj("kernel_dispatch", req.rid)
+                    first = self._prefill(bank, slot, toks[None, start:], start)
+                    self._inj("device_step", req.rid)
+                    t0 = int(self._sync(first, rid=req.rid)[0])
+                except InjectedFault as e:
+                    self._note_fault(e)
+                    alloc.free(seq)
+                    self._set_tbl_row(ctx.cache, slot, [])
+                    sched.retry_request(req)
+                    continue
+                self._clear_fault_streak()
+                self._note_admission(toks, cached)
                 if not sched.admit_request(slot, req, t0):
                     # done on its first token: its pages hold the whole prompt's KV
                     self._pool_drop(alloc, seq, toks)
@@ -997,22 +1323,41 @@ class Engine:
                 if self._spec is not None:
                     # a speculative round replaces the decode chunk; pages
                     # grow per verify segment inside the round
-                    finished = self._spec_round(sched, alloc, ctx, bank, budget=spec_budget,
-                                                pchunk=1, block_q=spec_block_q)
+                    self._watchdog.start_step()
+                    try:
+                        finished = self._spec_round(sched, alloc, ctx, bank, budget=spec_budget,
+                                                    pchunk=1, block_q=spec_block_q)
+                    except InjectedFault as e:
+                        self._on_step_fault(sched, e, fault_slot)
+                        continue
+                    self._step_done()
                     for s in finished:
                         self._pool_retire(sched, alloc, ctx, s)
                     refill()
                     self.peak_active = sched.note_peak()
                     continue
                 self._grow_live(sched, alloc, ctx, chunk_n)
+                if not sched.has_active():
+                    continue
                 # dead slots step in lockstep on page 0; one sync per chunk
-                toks_np = self._to_host(self._decode_chunk(bank, chunk_n))
+                self._watchdog.start_step()
+                try:
+                    self._inj("kernel_dispatch")
+                    out = self._decode_chunk(bank, chunk_n)
+                    self._inj("device_step")
+                    toks_np = self._sync(out)
+                except InjectedFault as e:
+                    # discard the step: undo its tok / pos, then retry it
+                    self._on_step_fault(sched, e, fault_slot)
+                    self._restage(bank, sched)
+                    continue
+                self._step_done()
                 for s in sched.absorb_chunk(toks_np):
                     self._pool_retire(sched, alloc, ctx, s)
                 refill()
                 self.peak_active = sched.note_peak()
         except Exception:
-            self._drop_paged_state()
+            self._recover_paged(sched, alloc, ctx)
             raise
         self._finish_serve(sched)
         return sched.results_list()
@@ -1053,6 +1398,9 @@ class Engine:
                     else 1 if b > 1 else pchunk)
         block_q = self._varlen_block_q(budget, seg_hint)
 
+        def fault_slot(v: int) -> None:
+            self._pool_fault_slot(sched, alloc, ctx, v)
+
         def try_admit():
             while (req := sched.head()) is not None:
                 slot = sched.free_slot()
@@ -1063,10 +1411,16 @@ class Engine:
                         slot = v
                     else:
                         return
-                got = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
+                try:
+                    got = self._admit_to_pool(sched, alloc, ctx, req, max_new_tokens, chunk_n)
+                except InjectedFault as e:  # only the request in hand rolls back
+                    self._note_fault(e)
+                    sched.retry_request(req)
+                    continue
                 if got is None:
                     return
                 seq, cached = got
+                self._note_admission(req.tokens, cached)
                 self._set_tbl_row(ctx.cache, slot, alloc.table(seq))
                 sched.admit_request_prefilling(
                     slot, req, fed0=cached.n_tokens if cached is not None else 0)
@@ -1098,17 +1452,24 @@ class Engine:
                                            bank.cache, self.mc, last_rows, block_q=block_q)
                 out.copy_(sample_token(logits, self._gen, self.sc))
 
+            self._inj("kernel_dispatch")
             self._steps.run(bank.graphs, ("packed", t, block_q), step)
-            return self._to_host(out)  # one sync per step
+            self._inj("device_step")
+            return self._sync(out)  # one sync per step
 
-        def decode_chunk_phase() -> np.ndarray:
+        def decode_chunk_phase() -> Optional[np.ndarray]:
             """No prefill in flight: `chunk_n` decode steps, tok / pos staged
             from the scheduler's host state; dead slots' zeroed table rows
-            send their lockstep writes to the garbage page."""
+            send their lockstep writes to the garbage page. None when growth
+            faults emptied the batch."""
             self._grow_live(sched, alloc, ctx, chunk_n)
-            self._steps.put(bank.state, [[sl.pending for sl in sched.slots],
-                                         [sl.kv for sl in sched.slots]])
-            return self._to_host(self._decode_chunk(bank, chunk_n))  # one sync per chunk
+            if not sched.has_active():
+                return None
+            self._restage(bank, sched)
+            self._inj("kernel_dispatch")
+            out = self._decode_chunk(bank, chunk_n)
+            self._inj("device_step")
+            return self._sync(out)  # one sync per chunk
 
         try:
             try_admit()
@@ -1122,22 +1483,30 @@ class Engine:
                     try_admit()
                     self.peak_active = sched.note_peak()
                     continue
-                if self._spec is not None:
-                    # speculative rounds carry verify chains and prefill chunks
-                    finished = self._spec_round(sched, alloc, ctx, bank, budget=budget,
-                                                pchunk=pchunk, block_q=block_q)
-                elif not any(sl.prefilling for sl in sched.slots):
-                    finished = sched.absorb_chunk(decode_chunk_phase())
-                else:
-                    plan = self._plan_grown(sched, alloc, ctx, budget, pchunk)
-                    finished = sched.commit(plan, dispatch(plan)) if plan.segments else []
+                self._watchdog.start_step()
+                try:
+                    if self._spec is not None:
+                        # speculative rounds carry verify chains and prefill chunks
+                        finished = self._spec_round(sched, alloc, ctx, bank, budget=budget,
+                                                    pchunk=pchunk, block_q=block_q)
+                    elif not any(sl.prefilling for sl in sched.slots):
+                        toks_np = decode_chunk_phase()
+                        finished = sched.absorb_chunk(toks_np) if toks_np is not None else []
+                    else:
+                        plan = self._plan_grown(sched, alloc, ctx, budget, pchunk)
+                        finished = sched.commit(plan, dispatch(plan)) if plan.segments else []
+                except InjectedFault as e:
+                    # discard the step (its inputs are staged anew) and retry it
+                    self._on_step_fault(sched, e, fault_slot)
+                    continue
+                self._step_done()
                 note_prefilled()
                 for s in finished:
                     self._pool_retire(sched, alloc, ctx, s)
                 try_admit()
                 self.peak_active = sched.note_peak()
         except Exception:
-            self._drop_paged_state()
+            self._recover_paged(sched, alloc, ctx)
             raise
         self._finish_serve(sched)
         return sched.results_list()

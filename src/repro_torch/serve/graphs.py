@@ -18,7 +18,11 @@ in place. `StepGraphs.run(graphs, key, fn)` runs one step:
   * graphs off (a CPU engine, or `Engine(graphs=False)` on the card, the
     oracle): every run is the same function, eager.
 
-A capture that fails raises; nothing falls back to the eager step.
+A capture that fails raises; nothing falls back to the eager step. The
+garbage collector is off during a capture: a dead object that holds
+graphs (an engine in a reference cycle) freed by the collector in the
+middle of a capture would reset its graphs there, which invalidates the
+capture (torch no longer collects before a capture).
 
 Launch counters. The kernel wrappers count their launches in Python
 (`flashd_decode.launches`, `.paged_launches`, `flashd_varlen.launches`),
@@ -34,6 +38,7 @@ captured and would block the host).
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Dict, Hashable, Optional
 
@@ -99,8 +104,14 @@ class StepGraphs:
         graph = torch.cuda.CUDAGraph()
         if self._gen is not None:
             graph.register_generator_state(self._gen)
-        with torch.cuda.graph(graph, pool=self._pool):
-            fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
         delta = tuple(a - b for a, b in zip(launch_counts(), before))
         _add_counts(tuple(-d for d in delta))  # the capture launched nothing
         graphs[key] = (graph, delta)

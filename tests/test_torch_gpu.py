@@ -1158,3 +1158,90 @@ def test_captured_quantized_and_spec_loops_match_eager(cuda, loop):
         base = Engine(params, cfg, dataclasses.replace(sc, spec_tokens=0), device=cuda)
         for g, w in zip(c_out[0], base.serve(reqs, 8)):
             np.testing.assert_array_equal(g, w)
+
+
+# ---- fault-tolerant serving on the captured loops ----
+
+CHAOS_LOOPS = {
+    "contiguous": dict(),
+    "paged": dict(kv_layout="paged"),
+    "mixed": dict(step_mode="mixed", page_size=8),
+}
+
+
+@pytest.mark.parametrize("loop", sorted(CHAOS_LOOPS))
+def test_captured_loops_under_faults_match_eager(cuda, loop):
+    """Smoke widths, f32: the captured engine and the eager one under the
+    same seeded faults, with the downgrade out of reach, give the same
+    statuses, tokens, host syncs, checks per site and K2–K4 launch counts,
+    and neither leaves the kernel route; DONE streams are the fault-free
+    ones. Then a downgrade (three kernel_dispatch faults in a row after
+    steps have run): the engine ends on the plain route with the
+    fault-free tokens, and a second serve launches no K2–K4 kernel."""
+    from repro_torch.runtime.resilience import FaultInjector
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=4)
+    rng = np.random.default_rng(5)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (7, 37, 9, 30)]
+    sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, **CHAOS_LOOPS[loop])
+    base = Engine(params, cfg, sc, device=cuda).serve(reqs, 8)
+    runs = []
+    sc_c = dataclasses.replace(sc, downgrade_after=1 << 20)  # above any reachable streak
+    for graphs in (None, False):
+        eng = Engine(params, cfg, sc_c, device=cuda, graphs=graphs,
+                     fault_injector=FaultInjector(rate=0.15, seed=3))
+        before = launch_counts()
+        outs = eng.serve(reqs, 8)
+        runs.append((outs, tuple(a - b for a, b in zip(launch_counts(), before)),
+                     eng.host_syncs, eng.stats()))
+        if eng._alloc is not None:
+            eng._alloc.check(eng._paged.cache)
+    (c_out, c_n, c_sync, c_st), (e_out, e_n, e_sync, e_st) = runs
+    assert c_st["request_status"] == e_st["request_status"]
+    assert c_st["fault_checks"] == e_st["fault_checks"]
+    assert sum(c_st["injected_faults"].values()) > 0
+    assert c_st["downgrades"] == e_st["downgrades"] == 0
+    assert c_st["attn_impl"] == e_st["attn_impl"] == cfg.attn_impl
+    assert c_n == e_n and c_sync == e_sync
+    for i, (g, w, b) in enumerate(zip(c_out, e_out, base)):
+        np.testing.assert_array_equal(g, w)
+        if c_st["request_status"][i] == "done":
+            np.testing.assert_array_equal(g, b)
+    sc_d = dataclasses.replace(sc, downgrade_after=3, max_retries=8)
+    eng = Engine(params, cfg, sc_d, device=cuda, fault_injector=FaultInjector(
+        schedule=[("kernel_dispatch", i) for i in (4, 5, 6)]))
+    before = launch_counts()
+    for g, b in zip(eng.serve(reqs, 8), base):
+        np.testing.assert_array_equal(g, b)
+    st = eng.stats()
+    assert st["downgrades"] == 1 and st["attn_impl"] == "flashd_plain"
+    assert sum(launch_counts()) > sum(before)  # kernels ran before the switch
+    eng._injector = None
+    frozen = launch_counts()
+    for g, b in zip(eng.serve(reqs, 8), base):
+        np.testing.assert_array_equal(g, b)
+    assert launch_counts() == frozen
+
+
+def test_capture_runs_with_the_collector_off(cuda):
+    """The garbage collector is off while a step is captured (and back on
+    after): a dead engine in a reference cycle, collected in the middle of
+    another capture, would reset its graphs there and invalidate the
+    capture — phase 17's first run on the card failed so, when the engine
+    held a bound method of itself."""
+    import gc
+
+    seen = []
+    x = torch.zeros(4, device=cuda)
+
+    def step():
+        seen.append(gc.isenabled())
+        x.add_(1)
+
+    steps, graphs = StepGraphs(cuda, graphs=True), {}
+    steps.run(graphs, "step", step)  # warm-up, then the capture
+    steps.run(graphs, "step", step)  # a replay runs no Python
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert x.tolist() == [2.0] * 4  # the warm-up and the replay; the capture ran nothing

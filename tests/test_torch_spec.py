@@ -1,5 +1,6 @@
 """Port parity for speculative decoding (A9), after `tests/test_speculative.py`
-(all but its chaos test, which waits for the fault-tolerant engine, A10).
+(its chaos test is mirrored with the fault-tolerant engine's, in
+`tests/test_torch_chaos.py`).
 
 Speculative serving is token-identical to non-speculative greedy serving at
 any acceptance rate: `OracleDraft` (the reference's seeded corruption,

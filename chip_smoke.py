@@ -24,14 +24,17 @@ non-zero:
      bf16; phases 7, 8 and 10 time bf16 beside f32 too), by CUDA events
      around the call and by the device time of what it launches (phases 7
      and 8 too), beside the byte bound of each dtype;
-  5. full-width qwen3-0.6b in f32 on seeded random weights: apply_lm
+  5. full-width qwen3-0.6b cut to QWEN_LAYERS (14 of its 28) layers —
+     the depth of phases 5–17 — in f32 on seeded random weights: apply_lm
      (last_only) and the engine (`generate`, `serve`), kernels against
      the plain path — greedy tokens identical, logits within bound, both
      kernels launched on the main path; the engine's steps replayed as
-     CUDA graphs (the default) against the same engine run eagerly
-     (`graphs=False`): tokens, K2–K4 launch counts and host syncs equal,
-     tok/s and TTFT side by side, and a decode step's breakdown (host ms,
-     device busy, idle share) eager and captured;
+     CUDA graphs (the default) against fresh engines captured and run
+     eagerly (`graphs=False`) on a short workload (the 2 shortest
+     requests and 2 of generate's prompts cut to 32, 8 new): tokens, K2–K4
+     launch counts and host syncs equal; tok/s and TTFT, and a decode
+     step's breakdown (host ms, device busy, idle share) eager and
+     captured;
   6. the same engine run in bf16, the model's own dtype;
   7. K3 `flashd_decode_paged` against `flashd_decode_paged_plain` at
      qwen3-0.6b widths (B 8, shuffled pages, NaN on the garbage page 0,
@@ -47,9 +50,10 @@ non-zero:
      mixed-step pack and on the four-prompt pack (the tensor-core body);
   9. the paged and the mixed serving loops at full width, f32, on phase
      5's weights and requests, the prefix cache on: kernel path captured
-     and eager, and the plain path, tokens identical to each other and to
-     phase 5's contiguous loop, K3 / K4 launched (counts and host syncs
-     equal captured and eager), the page allocator consistent; paged
+     and the plain path, tokens identical to each other and to phase 5's
+     contiguous loop, K3 / K4 launched, the page allocator consistent;
+     captured = eager (tokens, launches, host syncs) on phase 5's short
+     workload; paged
      decode step and packed step breakdowns, eager and captured; a
      shared-prefix workload (8 requests, a 256-token system prompt) with
      the cache on and off, captured: tokens identical, hits counted, and
@@ -103,7 +107,20 @@ non-zero:
      faults that launches no K2–K4 kernel); the 4 shortest requests under
      chaos, no downgrade, on an int8 pool (against phase 15's run of them)
      and with `OracleDraft` speculation;
- 14. (last) the kernels line (JSON), then the result line (JSON).
+ 18. llama4-scout-17b-a16e at full width (d 5120, 40 / 8 heads of 128, 16
+     experts of d_ff 8192, top-1, vocab 202048), cut to 4 layers — one
+     period of the pattern, 3 `attn_chunked` + 1 `attn_nope`, all MoE —
+     in f32 on seeded random weights (`_a12_phase`): the forward at S 8704
+     across the 8192-token chunk boundary, kernels against plain (logits
+     at the boundary's last position and the sequence's last); K1 under
+     the chunked mask at that shape, timed beside SDPA; 6 requests on 4
+     slots through the contiguous and the paged loop, captured, kernel =
+     plain tokens (paged: also a second serve and an eager engine), K2
+     (the rings) and K3 (the NoPE layer's pages) launched, and each held
+     to its plain version on the served engine's ring and pool; a decode
+     step's breakdown, parameter bytes and peak memory;
+ 14. (last) the kernels line (JSON) and the total seconds, then the result
+     line (JSON).
 
 It exits with code 2, printing no result, when no CUDA device is visible
 or when the port's sources are not beside it.
@@ -112,6 +129,7 @@ or when the port's sources are not beside it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -125,7 +143,8 @@ SRC = os.path.join(HERE, "src")
 
 F32_TOL = 5e-5  # O and Λ, f32: summation order only
 BF16_TOL = 2e-2  # O in bf16: one bf16 rounding of |O| < 4 (2^-7 · 2 + slack)
-LOGIT_TOL = 1e-3  # full-width f32 logits after 28 layers, attention order only
+LOGIT_TOL = 1e-3  # full-width f32 logits after 14–28 layers, attention order only
+QWEN_LAYERS = 14  # qwen3-0.6b's depth cut (of 28) in phases 5–17: the run fits the limit
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5  # K5 f32: the reference's kernel-vs-autodiff bound
 GRAD_BF16 = 2.0 ** -7  # K5 bf16: one bf16 rounding of the largest gradient entry
 TRAIN_REL = (1e-5, 1e-4)  # loss / grad norm, kernel vs plain: step 0, after AdamW updates
@@ -589,7 +608,287 @@ def _fault_phase(params, cfg, reqs, base, fault_free_tps, int8_short, dev):
     return text, total
 
 
+def _oracle(eng, gen_prompts, requests, n_new: int = 8) -> dict:
+    """One engine on a short workload (`generate` on `gen_prompts` unless
+    None, then `serve`): tokens, seconds, K2–K4 launches, host syncs and
+    graphs captured — the captured-vs-eager check of phases 5 and 9."""
+    import torch
+
+    from repro_torch.serve.graphs import launch_counts
+
+    before = launch_counts()
+    t = time.perf_counter()
+    gen = None if gen_prompts is None else eng.generate(gen_prompts, n_new)
+    toks = eng.serve(requests, n_new)
+    torch.cuda.synchronize()
+    return dict(gen=gen, toks=toks, s=time.perf_counter() - t, syncs=eng.host_syncs,
+                launched=tuple(a - b for a, b in zip(launch_counts(), before)),
+                captures=eng._steps.captures)
+
+
+def _check_oracle(label: str, oracle: dict) -> str:
+    """Assert captured = eager (`_oracle` runs keyed None and False):
+    tokens, K2–K4 launches and host syncs; → the text for the phase line."""
+    import numpy as np
+
+    cap, eag = oracle[None], oracle[False]
+    if cap["gen"] is not None:
+        assert np.array_equal(cap["gen"], eag["gen"]), f"{label}: generate tokens differ"
+    for a, b in zip(cap["toks"], eag["toks"]):
+        assert np.array_equal(a, b), f"{label}: captured and eager tokens differ"
+    assert cap["launched"] == eag["launched"], (label, cap, eag)
+    assert cap["syncs"] == eag["syncs"] and eag["captures"] == 0 < cap["captures"]
+    n = sum(map(len, cap["toks"])) + (0 if cap["gen"] is None else cap["gen"].size)
+    return (f"captured = eager on {len(cap['toks'])} requests"
+            f"{'' if cap['gen'] is None else ' and a generate of 2 x 32'}, 8 new (fresh engines: "
+            f"captured {cap['s']:.2f} s with {cap['captures']} captures, eager {eag['s']:.2f} s "
+            f"for {n} tokens; K2–K4 launches {cap['launched']} = {eag['launched']}, host syncs "
+            f"{cap['syncs']} = {eag['syncs']})")
+
+
+A12_LAYERS = 4  # llama4-scout's depth cut: one whole period (3 attn_chunked + 1 attn_nope)
+A12_SEQ = 8704  # phase 18's forward: past the 8192 chunk boundary by 512 positions
+
+
+def _a12_phase(dev, card: str, flush):
+    """Phase 18: llama4-scout-17b-a16e at full width (d 5120, Hq 40 / Hkv 8,
+    head dim 128, 16 experts of d_ff 8192 top-1, vocab 202048, chunk 8192),
+    A12_LAYERS layers, f32, seeded random weights:
+
+      * forward: `forward_hidden` at B 1 × S A12_SEQ on the kernel path (K1
+        under the chunked mask of the three chunked layers, the causal mask
+        of the NoPE one) against the plain path; logits at the last position
+        of the first chunk and at the last position, within LOGIT_TOL (never
+        the [S, V] logits); K1 alone at the chunked layers' shape against
+        its plain version, timed beside one SDPA call with the same mask as
+        a boolean [S, S] one, and its bound; the MoE aux values;
+      * serving: 6 requests (prompts 32–128, 16 new, max_batch 4, max_len
+        256: the last two decode beside two dead slots, which step on page
+        0 and feed the router) through the contiguous and the paged loop,
+        captured, on the kernel path and the plain path: tokens identical
+        within each loop; on the paged loop also the kernel engine's second
+        serve and an eager kernel engine; K2 launches in both loops (the
+        chunked layers' rings), K3 in the paged loop (the NoPE layer's
+        pages), K4 never; tok/s, TTFT, a decode step's breakdown, parameter
+        bytes and peak memory;
+      * K2 on the served engine's ring of a chunked layer (B 4, Hq 40 /
+        Hkv 8, 256 slots) at the ring's read lengths pos % 256 + 1 of
+        positions past a wrap, and K3 on its NoPE layer's pool through a
+        block table over its pages, each against its plain version in the
+        kernel's split order within F32_TOL (outside the counted runs).
+
+    Counts are reset just before each kernel-path run. Returns (the report,
+    the launches of each kernel over the phase's kernel-path runs, the
+    K1 timing row, the max|Δ| of K2 and K3 at the engines' shapes)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.blockwise import MaskSpec
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_fwd as k1
+    from repro_torch.kernels import flashd_varlen as k4
+    from repro_torch.models.layers import logits_from_hidden
+    from repro_torch.models.transformer import (
+        decode_step_lm,
+        forward_hidden,
+        init_decode_cache,
+        init_lm,
+    )
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"), n_layers=A12_LAYERS,
+                              dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    # K1 at the chunked layers' shape (before the weights take the card's memory):
+    # kernel, plain, SDPA with the mask as a boolean one
+    gen = torch.Generator(device=dev).manual_seed(18)
+    hq, hkv, d, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, A12_SEQ
+    q, k, v_ = (torch.randn(1, s, h_, d, generator=gen, device=dev) for h_ in (hq, hkv, hkv))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v_.transpose(1, 2)
+    chunked = MaskSpec("chunked", chunk=cfg.attn_chunk)
+    o, lam = k1.flashd_fwd(qt, kt, vt, mask=chunked)
+    o_p, lam_p = k1.flashd_fwd_plain(qt, kt, vt, mask=chunked)
+    k1_err = max(_err(o, o_p), _err(lam, lam_p))
+    assert k1_err <= F32_TOL, ("K1 chunked", k1_err)
+    del o, lam, o_p, lam_p
+    k1_ms = _time_ms(lambda: k1.flashd_fwd(qt, kt, vt, mask=chunked), flush=flush)
+    k1_plain_ms = _time_ms(lambda: k1.flashd_fwd_plain(qt, kt, vt, mask=chunked), reps=3,
+                           flush=flush)
+    pos = torch.arange(s, device=dev)
+    vis = (pos[None] <= pos[:, None]) & (pos[None] // cfg.attn_chunk == pos[:, None] // cfg.attn_chunk)
+    # the K/V heads repeated for the group: SDPA's memory-efficient kernel
+    # takes a boolean mask in f32, its grouped-query path does not
+    sd = [x.repeat_interleave(hq // x.shape[2], dim=2).transpose(1, 2).contiguous()
+          for x in (q, k, v_)]
+    k1_lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(*sd, attn_mask=vis),
+                         flush=flush)
+    n_vis = int(vis.sum())
+    del sd, vis, q, k, v_, qt, kt, vt
+    k1_ops = 4 * d * hq * n_vis
+    k1_bounds = _attn_bounds(k1_ops, 4 * s * d * (2 * hq + 2 * hkv), 2 * s * d * (2 * hq + 2 * hkv))
+    k1_row = {"ms": k1_ms, "plain_ms": k1_plain_ms, "library_ms": k1_lib_ms,
+              "bound_ms": k1_bounds["3xtf32"][0], "bound_by": k1_bounds["3xtf32"][1],
+              "max_abs_err": k1_err,
+              "shape": f"B1 Hq{hq} Hkv{hkv} d{d} S{s} chunked {cfg.attn_chunk} f32 (3xTF32)"}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, device=dev, seed=0)
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    launched = {"flashd_fwd": 0, "flashd_decode": 0, "flashd_decode_paged": 0, "flashd_varlen": 0}
+
+    def counts():
+        return {"flashd_fwd": k1.launches, "flashd_decode": k2.launches,
+                "flashd_decode_paged": k2.paged_launches, "flashd_varlen": k4.launches}
+
+    def reset():
+        k1.launches = k2.launches = k2.paged_launches = k4.launches = 0
+
+    # forward across the chunk boundary, kernels against plain
+    rng = np.random.default_rng(18)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, A12_SEQ)), device=dev)
+    rows = torch.tensor([cfg.attn_chunk - 1, A12_SEQ - 1], device=dev)
+    head = params["lm_head"]
+    fwd = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        if name == "kernel":
+            reset()
+        with torch.inference_mode():
+            t = time.perf_counter()
+            h, aux = forward_hidden(params, {"tokens": toks}, c)
+            logits = logits_from_hidden(h[:, rows], head, cfg.vocab_size)[0]
+            torch.cuda.synchronize()
+            fwd[name] = (logits, {k: float(v) for k, v in aux.items()}, time.perf_counter() - t)
+        del h
+        if name == "kernel":
+            got = counts()
+            assert got["flashd_fwd"] == A12_LAYERS, got
+            launched["flashd_fwd"] += got["flashd_fwd"]
+    v = cfg.vocab_size
+    logit_err = [_err(fwd["kernel"][0][i, :v], fwd["plain"][0][i, :v]) for i in range(2)]
+    assert max(logit_err) <= LOGIT_TOL, ("llama4 logits", logit_err)
+    n_moe = A12_LAYERS  # every layer's FFN is MoE
+    dropped = fwd["kernel"][1]["moe_dropped"] / n_moe
+
+
+    # serving: 6 requests on 4 slots (the second wave decodes beside dead slots)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+            for n in (32, 57, 96, 128, 33, 40)]
+    n_new = 16
+    report = []
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    qd = torch.randn(4, cfg.n_heads, cfg.head_dim_, generator=gen, device=dev)
+    direct = {}
+    for loop, kw in (("contiguous", {}), ("paged", dict(kv_layout="paged"))):
+        sc = ServeConfig(max_batch=4, max_len=256, **kw)
+        runs = {}
+        paths = [("kernel", cfg, None), ("plain", plain_cfg, None)]
+        if loop == "paged":
+            paths.append(("eager", cfg, False))
+        for name, c, graphs in paths:
+            eng = Engine(params, c, sc, device=dev, graphs=graphs)
+            reset()
+            t = time.perf_counter()
+            out = eng.serve(reqs, n_new)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            runs[name] = (out, dt, float(np.mean(list(eng.ttft.values()))), counts(),
+                          eng._steps.captures)
+            if eng._alloc is not None:
+                eng._alloc.check()
+            if name == "kernel" and loop == "paged":  # served twice: the same tokens
+                for a, b_ in zip(out, eng.serve(reqs, n_new)):
+                    assert np.array_equal(a, b_), "llama4 paged: a second serve differs"
+            if name == "kernel":  # K2 / K3 on this engine's ring and pool
+                blocks = (eng._paged if loop == "paged" else eng._contig[4]).cache["blocks"]
+                with torch.inference_mode():
+                    direct[loop] = _a12_direct(k2, blocks, qd, n_sm, loop)
+            del eng
+        (out, dt, ttft, got, graphs), plain = runs["kernel"], runs["plain"]
+        for other in runs:
+            for a, b_ in zip(out, runs[other][0]):
+                assert np.array_equal(a, b_), f"llama4 {loop}: kernel and {other} tokens differ"
+        assert sum(plain[3].values()) == 0, f"llama4 {loop}: the plain path launched a kernel"
+        assert got["flashd_decode"] > 0 and got["flashd_varlen"] == 0, (loop, got)
+        assert (got["flashd_decode_paged"] > 0) == (loop == "paged"), (loop, got)
+        for key in launched:
+            launched[key] += got[key]
+        n_tok = sum(map(len, out))
+        same = " = ".join(runs) + (" = a second serve" if loop == "paged" else "")
+        report.append(f"{loop}: tokens identical {same}; {n_tok / dt:.1f} tok/s (plain "
+                      f"{n_tok / plain[1]:.1f}), mean TTFT {ttft * 1e3:.1f} ms (plain "
+                      f"{plain[2] * 1e3:.1f}), {graphs} graphs captured; launches {got}")
+    # one decode step's breakdown at the loops' shape (B 4, pos 150), captured
+    cache = init_decode_cache(4, 256, cfg, device=dev)
+    tok4 = torch.zeros(4, dtype=torch.long, device=dev)
+    at = torch.full((4,), 150, dtype=torch.long, device=dev)
+    from repro_torch.serve.graphs import StepGraphs
+
+    steps, captured = StepGraphs(dev, graphs=True), {}
+    bd = _breakdown("captured decode step B4 pos150",
+                    lambda: steps.run(captured, "decode",
+                                      lambda: decode_step_lm(params, cache, tok4, at, cfg)))
+    del steps, captured, cache, params
+    peak = torch.cuda.max_memory_allocated()
+    text = (f"llama4-scout-17b-a16e f32 full width, {A12_LAYERS} layers (one period: 3 "
+            f"attn_chunked + 1 attn_nope, MoE 16 experts top-1), {param_bytes / 1e9:.2f} GB of "
+            f"parameters, peak {peak / 1e9:.2f} GB allocated, on {card}: forward B1 S{A12_SEQ} "
+            f"kernel {fwd['kernel'][2]:.2f} s, plain {fwd['plain'][2]:.2f} s, max|Δlogit| at "
+            f"positions {rows.tolist()} {logit_err[0]:.2e} / {logit_err[1]:.2e} (bound "
+            f"{LOGIT_TOL}); aux {fwd['kernel'][1]} (plain {fwd['plain'][1]}), MoE dropped "
+            f"fraction {dropped:.4f} per layer; K1 chunked at S {s}: max|Δ| {k1_err:.2e}, kernel "
+            f"{k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, sdpa with the boolean mask "
+            f"{k1_lib_ms:.3f} ms, " + _fmt_bounds(k1_bounds, k1_ops, {"kernel f32": k1_ms})
+            + f"; serving {len(reqs)} requests (prompts {[len(r) for r in reqs]}, {n_new} new, "
+            f"max_batch 4, max_len 256, captured): {'; '.join(report)}; "
+            + "; ".join(d_[1] for d_ in direct.values()) + f"; {bd}")
+    return text, launched, k1_row, {"flashd_decode": direct["contiguous"][0],
+                                    "flashd_decode_paged": direct["paged"][0]}
+
+
+def _a12_direct(k2, blocks, q, n_sm: int, loop: str):
+    """Phase 18's direct check of one served llama4 engine: K2 on the ring
+    of its first chunked layer (contiguous loop) or K3 on its NoPE layer's
+    pool (paged loop), at the engine's shapes, against the plain version in
+    the kernel's split order. The ring is read at pos % len + 1 for
+    positions before and past a wrap, with no chunk passed, as the decode
+    step reads it; the pool through a block table over its pages.
+    Returns (max|Δ|, a report)."""
+    import torch
+
+    b, hq, d = q.shape
+    if loop == "contiguous":
+        ring = blocks["pos0"]
+        kc, vc = (ring[x][0].transpose(1, 2) for x in ("k", "v"))  # [B, Hkv, len, d]
+        hkv, n = kc.shape[1], kc.shape[2]
+        pos = torch.tensor([143, 300, 511, 700], device=q.device)[:b]
+        eff = (pos % n + 1).to(torch.int32)
+        o = k2.flashd_decode(q, kc, vc, eff)
+        o_p = k2.flashd_decode_plain(q, kc, vc, eff, n_splits=k2.gpu_decode_splits(b, hkv, n, n_sm))
+        what = (f"K2 on a chunked layer's ring (B{b} Hq{hq} Hkv{hkv} d{d}, {n} slots, positions "
+                f"{pos.tolist()} read over {eff.tolist()} slots)")
+    else:
+        pool = blocks["pos3"]
+        kp, vp = pool["k_pages"][0], pool["v_pages"][0]  # [P, page, Hkv, d]
+        n_pages, page, hkv = kp.shape[0], kp.shape[1], kp.shape[2]
+        n_tbl = pool["tbl"].shape[-1]
+        tbl = (torch.arange(b * n_tbl, device=q.device) % (n_pages - 1) + 1).to(torch.int32)
+        tbl = tbl.reshape(b, n_tbl)
+        cl = torch.tensor([150, 1, n_tbl * page, 77], dtype=torch.int32, device=q.device)[:b]
+        o = k2.flashd_decode_paged(q, kp, vp, tbl, cl)
+        o_p = k2.flashd_decode_paged_plain(
+            q, kp, vp, tbl, cl, n_splits=k2.gpu_decode_splits(b, hkv, n_tbl * page, n_sm))
+        what = (f"K3 on the NoPE layer's pool (B{b} Hq{hq} Hkv{hkv} d{d}, {n_pages} pages of "
+                f"{page}, {n_tbl} a row, lengths {cl.tolist()})")
+    err = _err(o, o_p)
+    assert torch.isfinite(o).all() and err <= F32_TOL, (what, err)
+    return err, f"{what}: max|Δ| against plain {err:.2e} (bound {F32_TOL})"
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -811,7 +1110,8 @@ def main() -> int:
 
     # ---- 5. full-width qwen3-0.6b, f32: kernels vs plain, tokens identical ----
     ph = _Phase()
-    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
+    qwen = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=QWEN_LAYERS)
+    cfg = dataclasses.replace(qwen, dtype="float32")
     plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
     params = init_lm(cfg, device=dev, seed=0)
     rng = np.random.default_rng(0)
@@ -870,10 +1170,12 @@ def main() -> int:
     kern = run(cfg)
     launches = {"flashd_fwd": k1.launches, "flashd_decode": k2.launches}
     assert launches["flashd_fwd"] > 0 and launches["flashd_decode"] > 0, launches
-    eager = run(cfg, graphs=False, apply=False)
-    same_tokens("captured vs eager", kern, eager)
-    assert kern["launched"] == eager["launched"], (kern["launched"], eager["launched"])
-    assert kern["syncs"] == eager["syncs"] and eager["captures"] == 0 < kern["captures"]
+    # the eager oracle on a short workload (the GPU tests hold captured = eager
+    # at smoke width): the same steps on fresh engines, captured and eager
+    short = sorted(reqs, key=len)[:2]
+    oracle = {g: _oracle(Engine(params, cfg, sc, device=dev, graphs=g), gen_prompts[:2, :32],
+                         short) for g in (None, False)}
+    oracle_text = _check_oracle("contiguous", oracle)
     seen = counts()
     plain = run(plain_cfg)
     assert counts() == seen, "plain path launched a kernel"
@@ -894,15 +1196,14 @@ def main() -> int:
              f"{logit_err:.2e} (bound {LOGIT_TOL}), kernel {kern['apply_s']:.3f} s vs plain "
              f"{plain['apply_s']:.3f} s; generate 4x128+32 and serve 8 requests (prompts "
              f"{min(map(len, reqs))}-{max(map(len, reqs))}, 32 new) tokens identical captured = "
-             f"eager = plain; captured ({kern['captures']} graphs, {kern['capture_s']:.2f} s of "
-             f"warm-up runs and captures included): {rates(kern)}; eager: "
-             f"{rates(eager)}; plain (captured): {rates(plain)}; K2–K4 launches captured "
-             f"{kern['launched']} = eager {eager['launched']}; host syncs {kern['syncs']} = "
-             f"{eager['syncs']}; launches {launches}; {breakdown}; {breakdown_g} {ph}")
+             f"plain; captured ({kern['captures']} graphs, {kern['capture_s']:.2f} s of "
+             f"warm-up runs and captures included): {rates(kern)}; plain (captured): "
+             f"{rates(plain)}; K2–K4 launches {kern['launched']}, host syncs {kern['syncs']}; "
+             f"{oracle_text}; launches {launches}; {breakdown}; {breakdown_g} {ph}")
 
     # ---- 6. the same engine in bf16 ----
     ph = _Phase()
-    bcfg = get_config("qwen3-0.6b")  # compute dtype bfloat16, f32 master weights
+    bcfg = qwen  # compute dtype bfloat16, f32 master weights
     reset_counts()
     eng = Engine(params, bcfg, sc, device=dev)
     t = time.perf_counter()
@@ -1183,26 +1484,25 @@ def main() -> int:
         assert (got["flashd_varlen"] > 0) == (mode == "mixed"), (mode, got)
         for name in pool_launches:
             pool_launches[name] += got[name]
-        out["eager"] = pool_serve(Engine(params, cfg, psc, device=dev, graphs=False), reqs)
+        oracle = {g: _oracle(Engine(params, cfg, psc, device=dev, graphs=g), None, short)
+                  for g in (None, False)}
+        oracle_text = _check_oracle(mode, oracle)
         seen = counts()
         out["plain"] = pool_serve(Engine(params, plain_cfg, psc, device=dev), reqs)
         assert counts() == seen, f"{mode}: the plain path launched a kernel"
-        k, e = out["captured"], out["eager"]
+        k = out["captured"]
         pool_tps[mode] = n_serve / k["s"]
-        assert k["launched"] == e["launched"] and k["syncs"] == e["syncs"], (mode, k, e)
-        for a, b_, c, d_ in zip(k["toks"], e["toks"], out["plain"]["toks"], kern["serve"]):
-            assert np.array_equal(a, b_), f"{mode}: captured and eager tokens differ"
+        for a, c, d_ in zip(k["toks"], out["plain"]["toks"], kern["serve"]):
             assert np.array_equal(a, c), f"{mode}: kernel and plain tokens differ"
             assert np.array_equal(a, d_), f"{mode}: tokens differ from the contiguous loop"
         st = k["stats"]
         pool_report.append(
-            f"{mode}: tokens identical (captured = eager = plain = contiguous); captured "
+            f"{mode}: tokens identical (captured = plain = contiguous); captured "
             f"({k['captures']} graphs, {k['capture_s']:.2f} s of warm-up runs and captures "
             f"included) {n_serve / k['s']:.1f} tok/s, mean TTFT "
-            f"{k['ttft'] * 1e3:.1f} ms; eager {n_serve / e['s']:.1f} tok/s, "
-            f"{e['ttft'] * 1e3:.1f} ms; plain (captured) {n_serve / out['plain']['s']:.1f} tok/s; "
-            f"K3/K4 launches captured {k['launched'][1:]} = eager {e['launched'][1:]}; host syncs "
-            f"{k['syncs']} = {e['syncs']}; pool {st['kv_pool_bytes']} B "
+            f"{k['ttft'] * 1e3:.1f} ms; plain (captured) {n_serve / out['plain']['s']:.1f} tok/s; "
+            f"K3/K4 launches {k['launched'][1:]}, host syncs {k['syncs']}; "
+            f"{oracle_text}; pool {st['kv_pool_bytes']} B "
             f"({st['kv_bytes_per_token']:.0f} B/token, {st['kv_dtype']}), preemptions "
             f"{st['preemptions']}, prefix lookups {st['prefix_lookups']}, hit tokens "
             f"{st['hit_tokens']}")
@@ -1476,7 +1776,7 @@ def main() -> int:
     train_launches["fa2_fwd"] = k6.launches
     assert k6.launches > 0 and k5.launches > 0 and k1.launches == 0
     rel_k, rel_f = agree("kernel", curve_k, curve_p), agree("fa2", curve_f, curve_p)
-    bcfg_train = dataclasses.replace(get_config("qwen3-0.6b"), attn_impl="flashd_gpu")  # bf16 compute
+    bcfg_train = dataclasses.replace(qwen, attn_impl="flashd_gpu")  # bf16 compute
     _, _, curve_b, secs_b = train(bcfg_train)
     loss_b = curve_b[0][0]
     assert np.isfinite(loss_b) and abs(loss_b - curve_p[0][0]) <= BF16_LOSS_REL * curve_p[0][0], \
@@ -1840,6 +2140,13 @@ def main() -> int:
                                               quant_short["int8", "paged"], dev)
     _line(17, f"{chaos_text} {ph}")
 
+    # ---- 18. llama4-scout at full width, 4 layers (A12: MoE + chunked attention) ----
+    ph = _Phase()
+    del params
+    gc.collect()
+    a12_text, a12_launches, a12_k1, a12_err = _a12_phase(dev, card, flush)
+    _line(18, f"{a12_text} {ph}")
+
     # ---- 14. kernels line, result line ----
     kernels = [
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
@@ -1926,7 +2233,14 @@ def main() -> int:
         kernels[3][f"verify_{kv}_bound_ms"] = q_bound["K4 verify", kv]
     for row, key in ((kernels[1], "K2"), (kernels[2], "K3"), (kernels[3], "K4")):
         row["fault_phase_launches"] = chaos_launches[key]
-    _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}")
+    # phase 18: llama4-scout's main path (forward and the two serving loops)
+    for row in kernels[:4]:
+        row["llama4_launches"] = a12_launches[row["name"]]
+    kernels[0].update({f"llama4_{key}": val for key, val in a12_k1.items()})
+    for row in kernels[1:3]:
+        row["llama4_max_abs_err"] = a12_err[row["name"]]
+    _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}; all phases "
+              f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

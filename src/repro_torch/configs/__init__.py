@@ -1,6 +1,7 @@
 """Config registry: --arch <id> resolves here. The port carries copies of
-the reference's config data for the architectures this slice runs; the
-others raise "not ported" (A12)."""
+the reference's config data for the architectures it runs (dense GQA, MoE
+with chunked attention, RG-LRU with local attention); the SSM, vision and
+encoder-decoder ones raise "not ported" (A12)."""
 
 from __future__ import annotations
 
@@ -9,15 +10,17 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "deepseek-7b": "deepseek_7b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "yi-34b": "yi_34b",
     "qwen3-0.6b": "qwen3_0_6b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "paper-llama": "paper_llama",
 }
-# the reference's other architectures, queued for A12
-_NOT_PORTED = (
-    "deepseek-7b", "qwen2-1.5b", "yi-34b", "mamba2-2.7b", "phi-3-vision-4.2b",
-    "qwen3-moe-235b-a22b", "llama4-scout-17b-a16e", "seamless-m4t-medium",
-    "recurrentgemma-9b",
-)
+# the reference's other architectures, queued for A12 (steps d-f)
+_NOT_PORTED = ("mamba2-2.7b", "phi-3-vision-4.2b", "seamless-m4t-medium")
 
 
 def _module(name: str):
@@ -28,6 +31,9 @@ def _module(name: str):
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
 
 
+ARCHS = tuple(sorted(_MODULES))  # the architectures the port runs
+
+
 def get_config(name: str) -> ModelConfig:
     return _module(name).CONFIG
 
@@ -36,4 +42,4 @@ def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
 
 
-__all__ = ["get_config", "get_smoke_config", "ModelConfig"]
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "ModelConfig"]

@@ -60,6 +60,7 @@ __global__ void __launch_bounds__(tc::NTHREADS) fa2_fwd_kernel(tc::Args a) {
 template <typename T>
 cudaError_t dispatch_hd(int hd, const tc::Args& a, cudaStream_t stream) {
   switch (hd) {
+    case 16: return tc::launch<T, 16>(fa2_fwd_kernel<T, 16>, a, stream);
     case 32: return tc::launch<T, 32>(fa2_fwd_kernel<T, 32>, a, stream);
     case 48: return tc::launch<T, 48>(fa2_fwd_kernel<T, 48>, a, stream);
     case 64: return tc::launch<T, 64>(fa2_fwd_kernel<T, 64>, a, stream);

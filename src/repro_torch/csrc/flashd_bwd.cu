@@ -462,6 +462,7 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_hd(int hd, const BwdArgs& a, cudaStream_t stream) {
   switch (hd) {
+    case 16: return launch<T, 16>(a, stream);
     case 32: return launch<T, 32>(a, stream);
     case 48: return launch<T, 48>(a, stream);
     case 64: return launch<T, 64>(a, stream);

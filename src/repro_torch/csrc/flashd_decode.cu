@@ -238,6 +238,7 @@ cudaError_t dispatch_group(const Args& a, cudaStream_t stream) {
 template <typename TQ, typename TKV, bool PAGED>
 cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
   switch (hd) {
+    case 16: return dispatch_group<TQ, TKV, 16, PAGED>(a, stream);
     case 32: return dispatch_group<TQ, TKV, 32, PAGED>(a, stream);
     case 48: return dispatch_group<TQ, TKV, 48, PAGED>(a, stream);
     case 64: return dispatch_group<TQ, TKV, 64, PAGED>(a, stream);

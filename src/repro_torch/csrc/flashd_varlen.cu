@@ -545,6 +545,7 @@ cudaError_t launch(const Args& a, int nbr, cudaStream_t stream) {
 template <typename TQ, typename TKV>
 cudaError_t dispatch_hd(int hd, const Args& a, int nbr, cudaStream_t stream) {
   switch (hd) {
+    case 16: return launch<TQ, TKV, 16>(a, nbr, stream);
     case 32: return launch<TQ, TKV, 32>(a, nbr, stream);
     case 48: return launch<TQ, TKV, 48>(a, nbr, stream);
     case 64: return launch<TQ, TKV, 64>(a, nbr, stream);

@@ -38,7 +38,7 @@ from repro_torch.serve import Engine, ServeConfig
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="paper-llama")
+    p.add_argument("--arch", default="paper-llama", choices=configs.ARCHS)
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--requests", type=int, default=6)
     p.add_argument("--prompt-len", type=int, default=12)

@@ -37,7 +37,7 @@ from repro_torch.train.train_step import TrainConfig
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="paper-llama")
+    p.add_argument("--arch", default="paper-llama", choices=configs.ARCHS)
     p.add_argument("--smoke", action="store_true", help="use the reduced config")
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--global-batch", type=int, default=8)
@@ -109,11 +109,13 @@ def main(argv=None):
         monitor.observe(step, now - last_t[0])
         last_t[0] = now
         if step % args.log_every == 0 or step == args.steps - 1:
+            moe = (f"moe aux {metrics['moe_aux_loss']:.4f} z {metrics['moe_z_loss']:.4f} "
+                   f"dropped {metrics['moe_dropped']:.3f} " if cfg.n_experts else "")
             print(
                 f"step {step:5d} loss {metrics['loss']:.4f} "
                 f"gnorm {metrics['grad_norm']:.3f} "
                 f"lr {metrics['lr']:.2e} "
-                f"scale {metrics['loss_scale']:.3g} | "
+                f"scale {metrics['loss_scale']:.3g} {moe}| "
                 f"skipped={int(metrics['skipped'])} "
                 f"rollbacks={counters['rollbacks']} "
                 f"restarts={counters['restarts']} "

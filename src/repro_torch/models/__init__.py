@@ -1,4 +1,4 @@
-"""Model facade: the port of `repro/models/__init__.py`, decoder only."""
+"""Model facade: the port of `repro/models/__init__.py`, decoder-only stacks."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ class ModelApi(NamedTuple):
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    _tf.check_ported(cfg)  # encoder-decoder and non-attention stacks: A12
+    _tf.check_ported(cfg)  # SSM mixers, encoder-decoder stacks, frontends: A12
     return ModelApi(
         init=_tf.init_lm,
         apply=_tf.apply_lm,

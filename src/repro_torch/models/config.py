@@ -14,8 +14,9 @@ parameters stacked per pattern position. Mixers:
   ssm           Mamba-2 SSD block (attention-free)
   rglru         Griffin RG-LRU recurrent block
 
-FFNs: swiglu | moe | none. The port runs `attn` / `attn_nope` + `swiglu`
-stacks; the others raise "not ported" in `models/transformer.py` (A12).
+FFNs: swiglu | moe | none. The port runs every mixer but `ssm` (and no
+encoder-decoder stack or frontend); those raise "not ported" in
+`models/transformer.py` (A12).
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@
   * `embed_lookup` casts to the compute dtype;
   * `logits_from_hidden` multiplies in the compute dtype with f32 output
     (here: both operands upcast before the product, since a torch bf16
-    matmul would round its output to bf16) and masks the padded vocab.
+    matmul would round its output to bf16) and masks the padded vocab;
+  * `conv1d_causal` sums its taps in order in the input dtype (full
+    sequence) and contracts the window in f32 (decode).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["dense_init", "rms_norm", "apply_rope", "embed_lookup", "logits_from_hidden"]
+__all__ = ["dense_init", "rms_norm", "apply_rope", "embed_lookup", "logits_from_hidden",
+           "conv1d_causal"]
 
 
 def dense_init(generator: torch.Generator, shape, scale: Optional[float] = None,
@@ -74,3 +77,19 @@ def logits_from_hidden(h: torch.Tensor, head: torch.Tensor, true_vocab: int) -> 
     if v_pad > true_vocab:
         logits[..., true_vocab:] = -1e30
     return logits
+
+
+def conv1d_causal(x: torch.Tensor, w: torch.Tensor, cache: Optional[torch.Tensor] = None):
+    """Depthwise causal 1-D conv. x [B, S, C], w [K, C].
+
+    Full sequence (cache None): left-padded with K − 1 zeros, → (y [B, S, C],
+    None). Decode: `cache` [B, K − 1, C] holds the trailing inputs, x is one
+    step [B, 1, C]; → (y [B, 1, C], the new window [B, K − 1, C])."""
+    k = w.shape[0]
+    if cache is None:
+        xp = torch.nn.functional.pad(x, (0, 0, k - 1, 0))
+        y = sum(xp[:, i:i + x.shape[1], :] * w[i][None, None, :] for i in range(k))
+        return y.to(x.dtype), None
+    window = torch.cat([cache, x], dim=1)  # [B, K, C]
+    y = torch.einsum("bkc,kc->bc", window.float(), w.float())
+    return y[:, None, :].to(x.dtype), window[:, 1:, :]

@@ -1,24 +1,38 @@
-"""Decoder LM — the port of `repro/models/transformer.py` for stacks of
-`attn` / `attn_nope` mixers with `swiglu` FFNs (the other mixers raise
-"not ported", queue item A12).
+"""Decoder LM — the port of `repro/models/transformer.py` for every
+decoder-only attention family of the reference: mixers `attn`,
+`attn_nope`, `attn_local` (sliding window), `attn_chunked` (causal within
+chunks) and `rglru` (`models/rglru.py`); FFNs `swiglu`, `moe`
+(`models/moe.py`) and `none`. SSM mixers, encoder-decoder stacks and
+modality frontends raise "not ported" (queue item A12).
 
 Parameters are the reference's tree, a plain dict of tensors: `embed`,
-`final_norm`, `lm_head`, and `blocks/pos{j}/...` stacked on a leading layer
-axis. Where the reference scans that axis, the port loops over it in
-Python; attention runs through `repro_torch.core.attention` (on the card:
-the K1 kernel for full sequences, K2 for decode on the contiguous cache,
-K3 for decode on the paged pool, K4 for the packed mixed step).
+`final_norm`, `lm_head`, and `blocks/pos{j}/...` (and `rem_blocks/pos{j}`
+for the pattern's remainder) stacked on a leading layer axis. Where the
+reference scans that axis, the port loops over it in Python; attention
+runs through `repro_torch.core.attention` (on the card: the K1 kernel for
+full sequences under the causal, local or chunked mask, K2 for decode on a
+contiguous cache or a ring, K3 for decode on the paged pool, K4 for the
+packed mixed step). MoE aux values are summed over layers as the
+reference's scan sums them.
 
 Caches: contiguous ([L, B, S, Hkv, hd] per layer group) or paged (a page
-pool [L, P, page, Hkv, hd] per layer plus block tables [L, B, N]; every
-layer holds the same table; a quantized pool stores bytes with per-(page,
-kv head) scales [L, P, Hkv]). They are updated IN PLACE (`index_put` into
-the stacked tensors), where the reference rebuilt them functionally, so
-decode and `forward_packed` return the cache object they were given. A
-step writes K/V only at positions at or past each sequence's committed
-length and reads a position only after writing it, so the serving
-engine's fault retry (`serve/engine.py`) re-runs a faulted step exactly
-over its own stale rows.
+pool [L, P, page, Hkv, hd] per global-attention layer plus block tables
+[L, B, N]; every paged layer holds the same table; a quantized pool stores
+bytes with per-(page, kv head) scales [L, P, Hkv]). Local and chunked
+layers keep a ring of min(max_len, window | chunk) slots, contiguous in
+either layout: position p sits at slot p mod len, and decode reads the
+first min(p + 1, len) slots (local) or p mod len + 1 (chunked) with no
+window or chunk passed to the kernel — slot order is not position order.
+RG-LRU layers keep lru_state [L, B, W] and conv_cache [L, B, K − 1, W].
+
+Caches are updated IN PLACE (`index_put` into the stacked tensors), where
+the reference rebuilt them functionally, so decode and `forward_packed`
+return the cache object they were given. A step writes global K/V only at
+positions at or past each sequence's committed length and reads a
+position only after writing it; ring slots and recurrent state it
+overwrites are not restored by a re-run, so the serving engine backs them
+up before a step and puts them back after a faulted one
+(`undo_leaves`, `serve/engine.py`).
 """
 
 from __future__ import annotations
@@ -36,6 +50,8 @@ from repro_torch.core.attention import (
     varlen_attention,
 )
 from repro_torch.devices import resolve_device
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -49,6 +65,7 @@ __all__ = [
     "init_lm",
     "apply_lm",
     "lm_loss",
+    "forward_hidden",
     "init_decode_cache",
     "decode_step_lm",
     "decode_hidden_lm",
@@ -57,23 +74,27 @@ __all__ = [
     "paged_mixers",
     "packed_mixers_ok",
     "forward_packed",
+    "undo_leaves",
+    "rows_interact",
 ]
 
-_AUX_KEYS = ("moe_aux_loss", "moe_z_loss", "moe_dropped")
-_PORTED_MIXERS = ("attn", "attn_nope")
+_AUX_KEYS = moe_mod.AUX_KEYS
+_RING_MIXERS = ("attn_local", "attn_chunked")
+_PORTED_MIXERS = ("attn", "attn_nope", *_RING_MIXERS, "rglru")
+_PORTED_FFNS = ("swiglu", "moe", "none")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for any part of `cfg` this slice does not run."""
+    """Raise for any part of `cfg` the port does not run."""
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models not ported (A12)")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend not ported (A12)")
     for mixer, ffn in (*cfg.pattern, *cfg.remainder):
-        if mixer not in _PORTED_MIXERS or ffn != "swiglu":
+        if mixer not in _PORTED_MIXERS or ffn not in _PORTED_FFNS:
             raise NotImplementedError(
                 f"{cfg.name}: layer ({mixer}, {ffn}) not ported (A12); "
-                f"this slice runs {_PORTED_MIXERS} + swiglu"
+                f"the port runs {_PORTED_MIXERS} with {_PORTED_FFNS}"
             )
 
 
@@ -101,25 +122,32 @@ def _init_attn(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
-    dt, dev = cfg.master_dtype, gen.device
+def _init_swiglu(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.master_dtype
     return {
-        "norm1": torch.zeros((d,), dtype=dt, device=dev),
-        "mixer": _init_attn(gen, cfg),
-        "norm2": torch.zeros((d,), dtype=dt, device=dev),
-        "ffn": {
-            "wg": dense_init(gen, (d, f), dtype=dt),
-            "wu": dense_init(gen, (d, f), dtype=dt),
-            "wd": dense_init(gen, (f, d), dtype=dt),
-        },
+        "wg": dense_init(gen, (d, f), dtype=dt),
+        "wu": dense_init(gen, (d, f), dtype=dt),
+        "wd": dense_init(gen, (f, d), dtype=dt),
     }
 
 
+def _init_block(gen: torch.Generator, cfg: ModelConfig, spec) -> dict:
+    mixer, ffn = spec
+    d, dt, dev = cfg.d_model, cfg.master_dtype, gen.device
+    p = {"norm1": torch.zeros((d,), dtype=dt, device=dev),
+         "mixer": rg.init_rglru(gen, cfg) if mixer == "rglru" else _init_attn(gen, cfg)}
+    if ffn != "none":
+        p["norm2"] = torch.zeros((d,), dtype=dt, device=dev)
+        p["ffn"] = moe_mod.init_moe(gen, cfg) if ffn == "moe" else _init_swiglu(gen, cfg)
+    return p
+
+
 def _stack(trees):
+    """Stack per-block trees on a new leading axis (one block: a view, so a
+    single-block group of a full-width model is not held twice)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+    return trees[0][None] if len(trees) == 1 else torch.stack(trees)
 
 
 def init_lm(cfg: ModelConfig, *, device=None, seed: int = 0,
@@ -139,14 +167,11 @@ def init_lm(cfg: ModelConfig, *, device=None, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype=dt)
-    if cfg.n_blocks > 0:
-        params["blocks"] = _stack([
-            {f"pos{j}": _init_block(gen, cfg) for j in range(len(cfg.pattern))}
-            for _ in range(cfg.n_blocks)
-        ])
-    if cfg.remainder:
-        params["rem_blocks"] = _stack([
-            {f"pos{j}": _init_block(gen, cfg) for j in range(len(cfg.remainder))}
+    for key, pattern in _groups(cfg):
+        n = cfg.n_blocks if key == "blocks" else 1
+        params[key] = _stack([
+            {f"pos{j}": _init_block(gen, cfg, spec) for j, spec in enumerate(pattern)}
+            for _ in range(n)
         ])
     return params
 
@@ -195,10 +220,18 @@ def _qkv(p, x, cfg: ModelConfig, kind: str, positions):
     return q, k, v
 
 
+def _attn_mask(cfg: ModelConfig, kind: str) -> MaskSpec:
+    if kind == "attn_local":
+        return MaskSpec("local", window=cfg.attn_window)
+    if kind == "attn_chunked":
+        return MaskSpec("chunked", chunk=cfg.attn_chunk)
+    return MaskSpec("causal")
+
+
 def _apply_attn(p, x, cfg: ModelConfig, kind: str, positions):
     q, k, v = _qkv(p, x, cfg, kind, positions)
     o = flash_attention(
-        q, k, v, mask=MaskSpec("causal"), impl=cfg.attn_impl,  # attn / attn_nope
+        q, k, v, mask=_attn_mask(cfg, kind), impl=cfg.attn_impl,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k, skip=cfg.attn_skip,
     )
     b, s = x.shape[:2]
@@ -212,11 +245,26 @@ def _apply_swiglu(p, x, cfg: ModelConfig):
     return torch.matmul(torch.nn.functional.silu(g) * u, p["wd"].to(cdt))
 
 
+def _apply_ffn(bp: dict, h, cfg: ModelConfig, ffn: str):
+    """The block's FFN half with its pre-norm and residual → (h, aux: the
+    MoE aux values [3] f32 in `_AUX_KEYS` order, None for other FFNs)."""
+    if ffn == "none":
+        return h, None
+    x = rms_norm(h, bp["norm2"], cfg.norm_eps)
+    if ffn == "swiglu":
+        return h + _apply_swiglu(bp["ffn"], x, cfg), None
+    y, aux = moe_mod.apply_moe(bp["ffn"], x, cfg)
+    return h + y, torch.stack([aux[k] for k in _AUX_KEYS])
+
+
 def _apply_block(bp: dict, h, cfg: ModelConfig, spec, positions):
-    """One (mixer, ffn) block with pre-norms and residuals."""
-    mixer, _ = spec
-    h = h + _apply_attn(bp["mixer"], rms_norm(h, bp["norm1"], cfg.norm_eps), cfg, mixer, positions)
-    return h + _apply_swiglu(bp["ffn"], rms_norm(h, bp["norm2"], cfg.norm_eps), cfg)
+    """One (mixer, ffn) block with pre-norms and residuals → (h, aux [3] or
+    None), as `_apply_ffn`."""
+    mixer, ffn = spec
+    x = rms_norm(h, bp["norm1"], cfg.norm_eps)
+    y = rg.apply_rglru(bp["mixer"], x, cfg) if mixer == "rglru" else \
+        _apply_attn(bp["mixer"], x, cfg, mixer, positions)
+    return _apply_ffn(bp, h + y, cfg, ffn)
 
 
 def _head(params, cfg: ModelConfig):
@@ -254,32 +302,43 @@ def _remat(fn, cfg: ModelConfig):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
-def apply_lm(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool = False):
-    """Forward pass → (logits [B, S, Vpad] f32, aux dict of zeros).
-
-    last_only=True returns logits for the final position only — the
-    reference's prefill forward. Under autograd each block is
-    rematerialized as `cfg.remat` says."""
+def forward_hidden(params: dict, batch: Dict, cfg: ModelConfig):
+    """The stack without the LM head → (final-normed hidden [B, S, D], aux
+    dict of f32 scalars: each MoE value summed over the layers of a group
+    from zero, then over the groups, as the reference's scans sum them).
+    Under autograd each block is rematerialized as `cfg.remat` says."""
     check_ported(cfg)
     tokens = batch["tokens"]
     h = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
     positions = torch.arange(h.shape[1], device=h.device)
     block = _remat(_apply_block, cfg)
+    aux = torch.zeros((len(_AUX_KEYS),), dtype=torch.float32, device=h.device)
     for key, pattern in _groups(cfg):
+        acc = torch.zeros_like(aux)
         for i in range(params[key]["pos0"]["norm1"].shape[0]):
             bp = _index(params[key], i)
             for j, spec in enumerate(pattern):
-                h = block(bp[f"pos{j}"], h, cfg, spec, positions)
-    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+                h, a = block(bp[f"pos{j}"], h, cfg, spec, positions)
+                if a is not None:
+                    acc = acc + a
+        aux = aux + acc
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), dict(zip(_AUX_KEYS, aux.unbind()))
+
+
+def apply_lm(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool = False):
+    """Forward pass → (logits [B, S, Vpad] f32, aux dict of f32 scalars).
+
+    last_only=True returns logits for the final position only — the
+    reference's prefill forward."""
+    h, aux = forward_hidden(params, batch, cfg)
     if last_only:
         h = h[:, -1:]
-    logits = logits_from_hidden(h, _head(params, cfg), cfg.vocab_size)
-    return logits, {k: 0.0 for k in _AUX_KEYS}
+    return logits_from_hidden(h, _head(params, cfg), cfg.vocab_size), aux
 
 
 def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
-    """Causal-LM cross entropy (+ the MoE aux terms, zero for the ported
-    stacks) → (loss, metrics); labels == −1 are masked. Differentiable."""
+    """Causal-LM cross entropy + the MoE aux and z losses → (loss, metrics:
+    ce and the three aux values); labels == −1 are masked. Differentiable."""
     logits, aux = apply_lm(params, batch, cfg)
     labels = batch["labels"]
     mask = (labels >= 0).float()
@@ -297,37 +356,57 @@ def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
 
 def paged_mixers(cfg: ModelConfig):
     """Mixer kinds that take the paged layout: full-length (global)
-    attention caches only — here every ported mixer ('attn', 'attn_nope')."""
+    attention caches only. Local and chunked layers keep their ring (the
+    dense packing of what the layer can see), RG-LRU its O(1) state."""
     return tuple(
         m for m, _ in (*cfg.pattern, *cfg.remainder)
-        if m.startswith("attn") and m not in ("attn_local", "attn_chunked")
+        if m.startswith("attn") and m not in _RING_MIXERS
     )
 
 
 def packed_mixers_ok(cfg: ModelConfig) -> bool:
     """Can this stack run the packed varlen mixed step? Every mixer must
     read and write per-sequence state through the paged cache alone:
-    global causal attention ('attn', 'attn_nope')."""
+    global causal attention ('attn', 'attn_nope'). Ring and recurrent
+    layers carry sequential state a packed step cannot replay row by row,
+    so engines fall back to the sequential loops for those stacks."""
     return all(m in ("attn", "attn_nope") for m, _ in (*cfg.pattern, *cfg.remainder))
+
+
+def _ring_len(cfg: ModelConfig, mixer: str, max_len: int) -> int:
+    """Slots of a layer's contiguous K/V region: the window or chunk for
+    ring layers (capped at max_len), max_len for global ones."""
+    if mixer == "attn_local" and cfg.attn_window:
+        return min(max_len, cfg.attn_window)
+    if mixer == "attn_chunked" and cfg.attn_chunk:
+        return min(max_len, cfg.attn_chunk)
+    return max_len
 
 
 def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
                       layout: str = "contiguous", page_size: Optional[int] = None,
                       n_pages: Optional[int] = None, kv_dtype: str = "", device=None) -> dict:
-    """Zeroed decode caches in the reference's tree {'blocks': {'pos{j}':
-    ...}}, in the compute dtype.
+    """Zeroed decode caches in the reference's tree {'blocks' | 'rem_blocks':
+    {'pos{j}': ...}}, in the compute dtype, a leading layer axis on every
+    leaf.
 
-    layout="contiguous": {'k', 'v'}, each [n_blocks, batch, max_len, Hkv, hd].
-    layout="paged": {'k_pages', 'v_pages'} [n_blocks, P, page, Hkv, hd] and
-    'tbl' [n_blocks, batch, N] int32 (N = ⌈max_len / page⌉), every row
-    starting on the garbage page 0. The geometry comes from
+    Attention layers: {'k', 'v'} [n, batch, S, Hkv, hd] with S = max_len for
+    global layers and the ring length (`_ring_len`) for local / chunked
+    ones. RG-LRU layers: {'lru_state' [n, batch, W] f32, 'conv_cache' [n,
+    batch, K − 1, W]}.
+
+    layout="paged" gives each GLOBAL attention layer {'k_pages', 'v_pages'}
+    [n, P, page, Hkv, hd] and 'tbl' [n, batch, N] int32 (N = ⌈max_len /
+    page⌉), every row starting on the garbage page 0, instead; ring and
+    recurrent layers stay as above in the same tree. A stack with no global
+    layer has no pool (all contiguous). The geometry comes from
     `tuning.choose_page_layout`, sized at (n_pages − 1)·page_size tokens
     when both are given, else at batch·max_len — as the reference.
 
-    kv_dtype ∈ `quant.available()` stores the pool in that one-byte format
-    with per-(page, kv head) f32 scale leaves 'k_scale' / 'v_scale'
-    [n_blocks, P, Hkv], 1.0 on never-written pages; "" keeps the compute
-    dtype. Only a paged pool quantizes (ValueError otherwise)."""
+    kv_dtype ∈ `quant.available()` stores the pools in that one-byte
+    format with per-(page, kv head) f32 scale leaves 'k_scale' / 'v_scale'
+    [n, P, Hkv], 1.0 on never-written pages; "" keeps the compute dtype.
+    Only paged pools quantize (ValueError for layout="contiguous")."""
     from repro_torch.runtime import quant  # lazy: no cycle
 
     check_ported(cfg)
@@ -338,7 +417,7 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
         raise ValueError("kv_dtype quantization requires layout='paged'")
     dev = resolve_device(device)
     geom = None
-    if layout == "paged":
+    if layout == "paged" and paged_mixers(cfg):
         from repro_torch.kernels.tuning import choose_page_layout  # lazy: no cycle
 
         pl_ = choose_page_layout(
@@ -351,10 +430,12 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
         )
         geom = (pl_.n_pages, pl_.page_size, pl_.pages_per_seq)
 
-    def layer(n: int) -> dict:
+    def layer(n: int, mixer: str) -> dict:
         dt = cfg.compute_dtype
-        if geom is None:
-            shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        if mixer == "rglru":
+            return rg.init_rglru_cache(batch, cfg, dt, n=n, device=dev)
+        if geom is None or mixer in _RING_MIXERS:
+            shape = (n, batch, _ring_len(cfg, mixer, max_len), cfg.n_kv_heads, cfg.head_dim_)
             return {"k": torch.zeros(shape, dtype=dt, device=dev),
                     "v": torch.zeros(shape, dtype=dt, device=dev)}
         n_p, page, per_seq = geom
@@ -374,17 +455,64 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
     cache: dict = {}
     for key, pattern in _groups(cfg):
         n = cfg.n_blocks if key == "blocks" else 1
-        cache[key] = {f"pos{j}": layer(n) for j in range(len(pattern))}
+        cache[key] = {f"pos{j}": layer(n, mixer) for j, (mixer, _) in enumerate(pattern)}
     return cache
 
 
-def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos, alive=None):
+# pool leaves (no batch axis; the physical page axis at 1): the pages and a
+# quantized pool's scale side-band, so page copies move bytes and scales
+# together and the pool's footprint counts both
+POOL_LEAVES = ("k_pages", "v_pages", "k_scale", "v_scale")
+
+
+def cache_leaves(tree: dict):
+    """(leaf name, tensor) pairs of a cache tree."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from cache_leaves(v)
+        else:
+            yield k, v
+
+
+def rows_interact(cfg: ModelConfig) -> bool:
+    """Does one row of a step change another's output? Yes on an MoE stack:
+    every row of a call, dead slots and padding rows included, competes for
+    the experts' capacity."""
+    return any(f == "moe" for _, f in (*cfg.pattern, *cfg.remainder))
+
+
+def undo_leaves(cache: dict, cfg: ModelConfig) -> list:
+    """The cache tensors a serving step overwrites where a re-run of the
+    step would not rewrite them first: ring K/V and RG-LRU state (a ring
+    slot may be overwritten by a later position of the same chunk before
+    an earlier one reads it; a recurrence applied twice is wrong). On an
+    MoE stack rows interact (capacity is shared by every row of a step,
+    dead slots and padding rows included), so the garbage that dead slots
+    read must be the reference's too: every per-batch leaf and page 0 of
+    each pool (views) join the list. The engine copies them aside before a
+    step and back after a faulted one — the reference discards the whole
+    new cache."""
+    moe = rows_interact(cfg)
+    out = []
+    for key, pattern in _groups(cfg):
+        for j, (mixer, _) in enumerate(pattern):
+            layer = cache[key][f"pos{j}"]
+            for name, leaf in layer.items():
+                if name in POOL_LEAVES:
+                    if moe:
+                        out.append(leaf[:, 0])
+                elif name != "tbl" and (moe or mixer in _RING_MIXERS or mixer == "rglru"):
+                    out.append(leaf)
+    return out
+
+
+def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos):
     """One-token attention against the cache; writes this token's K/V in
-    place at slot pos % max_len (contiguous) or through the block table
-    (paged). pos [B] absolute position. On the contiguous cache, rows with
-    alive == False keep their cache unchanged (prefill_lm's `lengths`); a
-    paged pool takes their writes, which land past the row's length (the
-    reference's `_freeze_dead_rows` passes pool leaves through too)."""
+    place at slot pos % len (contiguous and ring regions) or through the
+    block table (paged). pos [B] absolute position. A ring is read over
+    its first min(pos + 1, len) slots (local) or pos % len + 1 (chunked),
+    with no window or chunk passed on: the slots are not in position
+    order."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, kind, pos[:, None])
     if "k_pages" in cache:
@@ -392,16 +520,17 @@ def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos, alive=None):
         return torch.matmul(o.reshape(b, 1, cfg.n_heads * cfg.head_dim_),
                             p["wo"].to(cfg.compute_dtype))
     k_cache, v_cache = cache["k"], cache["v"]  # [B, S_max, Hkv, hd] views
-    write_idx = pos % k_cache.shape[1]
+    s_len = k_cache.shape[1]
+    write_idx = pos % s_len
     bidx = torch.arange(b, device=x.device)
-    k_new, v_new = k[:, 0], v[:, 0]
-    if alive is not None:
-        keep = alive[:, None, None]
-        k_new = torch.where(keep, k_new, k_cache[bidx, write_idx])
-        v_new = torch.where(keep, v_new, v_cache[bidx, write_idx])
-    k_cache[bidx, write_idx] = k_new
-    v_cache[bidx, write_idx] = v_new
-    eff_len = pos + 1
+    k_cache[bidx, write_idx] = k[:, 0]
+    v_cache[bidx, write_idx] = v[:, 0]
+    if kind == "attn_local":
+        eff_len = torch.clamp(pos + 1, max=s_len)
+    elif kind == "attn_chunked":
+        eff_len = write_idx + 1
+    else:
+        eff_len = pos + 1
     if uses_kernel(cfg.attn_impl, x):
         from repro_torch.kernels import ops  # lazy: no cycle
 
@@ -412,27 +541,44 @@ def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos, alive=None):
     return torch.matmul(o, p["wo"].to(cfg.compute_dtype))
 
 
-def _write_pool(cache, k_new, v_new, pid, slot, is_slot0) -> None:
+def _last_writer(dest: torch.Tensor) -> torch.Tensor:
+    """For each row of a scatter to indices `dest`, the last row with the
+    same index. Taking every row's value from it makes duplicate indices
+    write one value, so the scatter stores what a sequential one stores
+    (the last write) in whatever order the card applies them."""
+    s, order = torch.sort(dest, stable=True)
+    return order[torch.searchsorted(s, dest, right=True) - 1]
+
+
+def _write_pool(cache, k_new, v_new, pid, slot, is_slot0, cfg: ModelConfig) -> None:
     """Write rows k_new / v_new [N, Hkv, hd] at (page pid, slot) of the
     pool, in place. A quantized pool (scale leaves) first scatters the
     slot-0 rows' page scales (`quant.slot0_scale`; every other row is
     routed to the garbage page 0, whose scale no live row reads), then
     quantizes every row with its page's updated scale — so a call that
     writes slot 0 and later slots of one page stores what the sequential
-    write order stores (the reference's rule). Duplicate indices of an
-    in-place scatter land in any order on the card: only page 0 takes
-    duplicates."""
+    write order stores (the reference's rule). Only page 0 takes duplicate
+    indices (dead slots, padding rows), which an in-place scatter on the
+    card lands in any order; on an MoE stack the dead rows that read page
+    0 feed the router, so there each duplicate writes its last writer's
+    value (`_last_writer`) and page 0 holds what the reference's does."""
+    dedupe = rows_interact(cfg)
     k_scale = cache.get("k_scale")
     if k_scale is not None:
         from repro_torch.runtime import quant  # lazy: no cycle
 
         spec = quant.spec_for_dtype(cache["k_pages"].dtype)
         spid = torch.where(is_slot0, pid, 0)
+        sw = _last_writer(spid) if dedupe else None
         for rows, name in ((k_new, "k_scale"), (v_new, "v_scale")):
             leaf = cache[name]
-            leaf[spid] = torch.where(is_slot0[:, None], quant.slot0_scale(rows, spec), leaf[0])
+            val = torch.where(is_slot0[:, None], quant.slot0_scale(rows, spec), leaf[0])
+            leaf[spid] = val if sw is None else val[sw]
         k_new = quant.quantize_rows(k_new, k_scale[pid], spec)
         v_new = quant.quantize_rows(v_new, cache["v_scale"][pid], spec)
+    if dedupe:
+        w = _last_writer(pid * cache["k_pages"].shape[1] + slot)
+        k_new, v_new = k_new[w], v_new[w]
     cache["k_pages"][pid, slot] = k_new
     cache["v_pages"][pid, slot] = v_new
 
@@ -451,7 +597,7 @@ def _paged_attn_step(q, k, v, cfg: ModelConfig, cache, pos):
     page_idx = torch.div(pos, page, rounding_mode="floor")
     pid = torch.where(page_idx < n_tbl, tbl[bidx, torch.clamp(page_idx, max=n_tbl - 1)], 0).long()
     slot = pos % page
-    _write_pool(cache, k[:, 0], v[:, 0], pid, slot, slot == 0)
+    _write_pool(cache, k[:, 0], v[:, 0], pid, slot, slot == 0, cfg)
     eff_len = pos + 1
     scales = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
     if uses_kernel(cfg.attn_impl, q):
@@ -461,11 +607,14 @@ def _paged_attn_step(q, k, v, cfg: ModelConfig, cache, pos):
     return decode_attention_paged(q, k_pages, v_pages, tbl, eff_len, **scales)
 
 
-def _decode_block(bp, h, cfg: ModelConfig, spec, cache, pos, alive=None):
-    mixer, _ = spec
+def _decode_block(bp, h, cfg: ModelConfig, spec, cache, pos):
+    mixer, ffn = spec
     x = rms_norm(h, bp["norm1"], cfg.norm_eps)
-    h = h + _decode_attn(bp["mixer"], x, cfg, mixer, cache, pos, alive)
-    return h + _apply_swiglu(bp["ffn"], rms_norm(h, bp["norm2"], cfg.norm_eps), cfg)
+    if mixer == "rglru":
+        h = h + rg.decode_rglru(bp["mixer"], x, cache, cfg)
+    else:
+        h = h + _decode_attn(bp["mixer"], x, cfg, mixer, cache, pos)
+    return _apply_ffn(bp, h, cfg, ffn)[0]
 
 
 def _run_cached_groups(params: dict, cache: dict, h, cfg: ModelConfig, block_step):
@@ -478,13 +627,13 @@ def _run_cached_groups(params: dict, cache: dict, h, cfg: ModelConfig, block_ste
     return h
 
 
-def _decode_hidden(params, cache, token, pos, cfg: ModelConfig, alive=None):
+def _decode_hidden(params, cache, token, pos, cfg: ModelConfig):
     """Final-normed hidden state [B, 1, D] of one decode step."""
     h = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
 
     def block_step(bp, bc, h, pattern):
         for j, spec in enumerate(pattern):
-            h = _decode_block(bp[f"pos{j}"], h, cfg, spec, bc[f"pos{j}"], pos, alive)
+            h = _decode_block(bp[f"pos{j}"], h, cfg, spec, bc[f"pos{j}"], pos)
         return h
 
     h = _run_cached_groups(params, cache, h, cfg, block_step)
@@ -520,21 +669,31 @@ def prefill_lm(params: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig
     start_pos > 0 prefills a tail at positions [start_pos, start_pos + s),
     the cache already holding the first start_pos positions.
 
-    lengths [B] (each row's real token count ≤ s): rows stop writing the
-    cache after their length (the reference's `_freeze_dead_rows`, here a
-    masked in-place write) and their logits are those of position
-    lengths − 1. The hidden state is captured there and the LM head runs
-    once at the end, which gives the logits the reference computes per step."""
+    lengths [B] (each row's real token count ≤ s): past its length a row
+    still steps (it feeds an MoE router like any other row), and then its
+    per-batch leaves — contiguous and ring K/V, RG-LRU state — go back to
+    what they held before the step (the reference's `_freeze_dead_rows`;
+    pool leaves keep the writes, which land past the row's length). Its
+    logits are those of position lengths − 1: the hidden state is captured
+    there and the LM head runs once at the end, which gives the logits the
+    reference computes per step."""
     b, s = tokens.shape
     dev = tokens.device
+    full = s  # steps before this one keep every row
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev).reshape(b)
+        full = int(lengths.min())
     h_last = torch.zeros((b, 1, cfg.d_model), dtype=cfg.compute_dtype, device=dev)
     seen = torch.zeros((b,), dtype=torch.bool, device=dev)
+    rows = [leaf for name, leaf in cache_leaves(cache) if name not in POOL_LEAVES]
     for t in range(s):
         pos = torch.full((b,), start_pos + t, dtype=torch.long, device=dev)
-        alive = None if lengths is None else t < lengths
-        h = _decode_hidden(params, cache, tokens[:, t], pos, cfg, alive)
+        old = None if t < full else [leaf.clone() for leaf in rows]
+        h = _decode_hidden(params, cache, tokens[:, t], pos, cfg)
+        if old is not None:  # rows past their length: the step's writes are undone
+            alive = t < lengths
+            for leaf, was in zip(rows, old):
+                leaf.copy_(torch.where(alive.reshape((1, -1) + (1,) * (leaf.ndim - 2)), leaf, was))
         take = (torch.ones_like(seen) if lengths is None else t == lengths - 1)
         h_last = torch.where(take[:, None, None], h, h_last)
         seen = seen | take
@@ -562,7 +721,7 @@ def _packed_attn(p, x, cfg: ModelConfig, kind: str, cache, positions, seq_ids, k
     in_tbl = (seq_ids >= 0) & (positions >= 0) & (page_idx < n_tbl)
     pid = torch.where(in_tbl, tbl[sid, torch.clamp(page_idx, 0, n_tbl - 1)], 0).long()
     slot = torch.where(positions >= 0, positions % page, 0)
-    _write_pool(cache, k[0], v[0], pid, slot, (slot == 0) & in_tbl)
+    _write_pool(cache, k[0], v[0], pid, slot, (slot == 0) & in_tbl, cfg)
     o = varlen_attention(q[0], k_pages, v_pages, tbl, seq_ids, positions, kv_len,
                          impl=cfg.attn_impl, block_q=block_q,
                          k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
@@ -592,12 +751,12 @@ def forward_packed(params: dict, tokens: torch.Tensor, seq_ids: torch.Tensor,
     bq = block_q if block_q is not None else cfg.attn_block_q
 
     def block_step(bp, bc, h, pattern):
-        for j, (mixer, _) in enumerate(pattern):
+        for j, (mixer, ffn) in enumerate(pattern):
             bpj = bp[f"pos{j}"]
             x = rms_norm(h, bpj["norm1"], cfg.norm_eps)
             h = h + _packed_attn(bpj["mixer"], x, cfg, mixer, bc[f"pos{j}"], positions,
                                  seq_ids, kv_len, bq)
-            h = h + _apply_swiglu(bpj["ffn"], rms_norm(h, bpj["norm2"], cfg.norm_eps), cfg)
+            h = _apply_ffn(bpj, h, cfg, ffn)[0]
         return h
 
     h = _run_cached_groups(params, cache, h, cfg, block_step)

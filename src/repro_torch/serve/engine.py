@@ -14,6 +14,15 @@ reference's three loops:
     batch and runs ONE `forward_packed` step (K4); steps with no prefill in
     flight take the decode fast path, `decode_chunk` decode steps (K3).
 
+As the reference's engine, a stack with no global-attention layer to page
+(recurrentgemma's rings and RG-LRU) serves on the contiguous loop whatever
+the layout asked, and a stack with ring or recurrent layers (llama4's
+chunked layers) takes no packed step: `step_mode="mixed"` falls back to
+the sequential loop of its `kv_layout`. In a paged hybrid tree only the
+global layers take pages; ring and recurrent state stay per slot, zeroed
+when a request is admitted. The prefix cache and speculation need every
+mixer to read the paged cache alone, as the reference's.
+
 Requests join a slot array; finished slots are refilled from a priority
 queue (FIFO within a class). The slot lifecycle — queue, per-slot outputs,
 EOS / max-token completion, refill, priority preemption, mixed-step plans,
@@ -76,9 +85,12 @@ request alone; a step-wide fault discards the step and retries it, and
 after `max_retries` faulted steps in a row the scheduler's victim is
 charged a retry. Commit-after-sync: the host state (scheduler, allocator,
 radix tree) advances only after a step's sync, and the device state a step
-advances in place — the sequential loops' decode state `tok` / `pos` — is
-re-staged from the scheduler's committed state after a faulted step
-(`_restage`, through `StepGraphs.put`); the K/V rows a faulted step wrote
+advances in place beyond what its re-run rewrites — the sequential loops'
+decode state `tok` / `pos`, ring slots and RG-LRU state, and on an MoE
+stack every per-batch leaf and page 0 of the pool, which dead slots feed
+to the router — is saved by the step itself and put back after a faulted
+one (`_Bank.save` / `undo`; the mixed loop stages its decode state from
+the scheduler, `_restage`); the global K/V rows a faulted step wrote
 sit at positions at or past each slot's committed length, which the retry
 rewrites before any row reads them (a byte pool's slot-0 scale included)
 and which no donation covers (only the full pages of the committed stream
@@ -112,11 +124,15 @@ from repro_torch.kernels.tuning import (
 )
 from repro_torch.models import ModelConfig, get_model
 from repro_torch.models.transformer import (
+    POOL_LEAVES,
+    cache_leaves,
     decode_hidden_lm,
     forward_packed,
     logits_lm,
     packed_mixers_ok,
     paged_mixers,
+    rows_interact,
+    undo_leaves,
 )
 from repro_torch.runtime import quant
 from repro_torch.runtime.kvcache import CachePolicy, PagedKVAllocator, PageError, pages_for
@@ -125,11 +141,6 @@ from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.scheduler import Request, Scheduler, StepPlan
 
 __all__ = ["ServeConfig", "Engine", "sample_token", "pack_plan", "pack_verify"]
-
-# pool leaves (no batch axis; the physical page axis at 1): the pages and a
-# quantized pool's scale side-band, so page copies move bytes and scales
-# together and the pool's footprint counts both
-_POOL_LEAVES = ("k_pages", "v_pages", "k_scale", "v_scale")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,17 +206,14 @@ def _slot_view(cache: dict, slot: int) -> dict:
     """Batch-1 view of one slot of a stacked [L, B, ...] cache tree; page
     pools (no batch axis) are shared whole."""
     return {k: (_slot_view(v, slot) if isinstance(v, dict)
-                else v if k in _POOL_LEAVES else v[:, slot:slot + 1])
+                else v if k in POOL_LEAVES else v[:, slot:slot + 1])
             for k, v in cache.items()}
 
 
-def _leaves(tree: dict):
-    """(leaf name, tensor) pairs of a cache tree."""
-    for k, v in tree.items():
-        if isinstance(v, dict):
-            yield from _leaves(v)
-        else:
-            yield k, v
+def _put_back(region, saved) -> None:
+    """Copy `saved` (clones of `region`'s tensors, or None) back in place."""
+    for leaf, old in zip(region, saved or ()):
+        leaf.copy_(old)
 
 
 def _pack(plan: StepPlan, block_q: int, max_batch: int):
@@ -274,9 +282,17 @@ class _Bank:
     """One device cache and the static buffers of the steps that run on it:
     the decode state `tok` / `pos` [B] (rows of one [2, B] buffer, so the
     mixed loop stages both in one copy), named buffers created on first
-    use, and the graphs of its steps."""
+    use, the graphs of its steps, and the undo pairs: each tensor a step
+    overwrites in place beyond what its re-run rewrites (the decode state,
+    and `transformer.undo_leaves` when `faults`: only an engine with a
+    fault injector discards a step that ran), beside the copy the step
+    saves of it first (`save`), which `undo` puts back after a faulted
+    step — only when the step ran (`ran`: cleared before a step is
+    attempted, set once it ran; a fault raised before the launch leaves
+    nothing to undo)."""
 
-    def __init__(self, cache: dict, rows: int, device: torch.device):
+    def __init__(self, cache: dict, rows: int, device: torch.device, cfg: ModelConfig,
+                 faults: bool):
         self.cache = cache
         self.rows = rows
         self.state = torch.zeros((2, rows), dtype=torch.long, device=device)
@@ -284,6 +300,21 @@ class _Bank:
         self.graphs: dict = {}
         self._device = device
         self._bufs: dict = {}
+        leaves = undo_leaves(cache, cfg) if faults else []
+        self._undo = [(t, torch.empty_like(t)) for t in (self.state, *leaves)]
+        self.ran = False
+
+    def save(self) -> None:
+        """Copy the undo set aside (the first thing a step does)."""
+        for live, saved in self._undo:
+            saved.copy_(live)
+
+    def undo(self) -> None:
+        """Put back what the faulted step saved, if it ran."""
+        if self.ran:
+            for live, saved in self._undo:
+                live.copy_(saved)
+        self.ran = False
 
     def buf(self, name, shape, dtype: torch.dtype = torch.long) -> torch.Tensor:
         t = self._bufs.get(name)
@@ -365,6 +396,7 @@ class Engine:
             )
         self._mixed_ok = (serve_cfg.step_mode == "mixed" and self._page_layout is not None
                           and packed_mixers_ok(model_cfg))
+        self._rows_interact = rows_interact(model_cfg)  # MoE: dead slots feed the router
         # prefix reuse skips the shared positions' prefill steps, sound only
         # when every mixer reads the paged cache alone; the radix prefix
         # cache addresses pages by content on the same condition
@@ -540,8 +572,8 @@ class Engine:
                      pages_in_use=self._alloc.pages_in_use, free_pages=self._alloc.free_pages)
         if self._paged is not None:
             # the pool's device footprint (a quantized pool's scales included)
-            seen = sum(x.numel() * x.element_size() for name, x in _leaves(self._paged.cache)
-                       if name in _POOL_LEAVES)
+            seen = sum(x.numel() * x.element_size() for name, x in cache_leaves(self._paged.cache)
+                       if name in POOL_LEAVES)
             pool_tokens = self._page_layout.n_pages * self._page_layout.page_size
             s["kv_pool_bytes"] = int(seen)
             s["kv_bytes_per_token"] = seen / max(pool_tokens, 1)
@@ -675,16 +707,19 @@ class Engine:
         bank = self._contig.get(b)
         if bank is None:
             cache = self.api.init_cache(b, self.sc.max_len, self.mc, device=self.device)
-            bank = self._contig[b] = _Bank(cache, b, self.device)
+            bank = self._contig[b] = _Bank(cache, b, self.device, self.mc,
+                                           faults=self._injector is not None)
         return bank
 
     def _decode_chunk(self, bank: _Bank, n: int) -> torch.Tensor:
         """`n` decode steps with their sampling from bank.tok / bank.pos,
         which advance in place (the reference's `_chunk_fn`); dead slots
-        step in lockstep. Returns the static [n, B] tokens buffer."""
+        step in lockstep. The undo set is saved first (`_Bank.save`).
+        Returns the static [n, B] tokens buffer."""
         out = bank.buf(("chunk", n), (n, bank.rows))
 
         def chunk():
+            bank.save()
             for i in range(n):
                 logits, _ = self.api.decode_step(self.params, bank.cache, bank.tok, bank.pos,
                                                  self.mc)
@@ -693,6 +728,7 @@ class Engine:
                 bank.pos.add_(1)
 
         self._steps.run(bank.graphs, ("chunk", n), chunk)
+        bank.ran = True
         return out
 
     def _prefill(self, bank: _Bank, slot: Optional[int], tokens: np.ndarray,
@@ -740,7 +776,7 @@ class Engine:
             return np.zeros((b, 0), np.int64)
         with torch.inference_mode():
             bank = self._contiguous(b)
-            for _, leaf in _leaves(bank.cache):
+            for _, leaf in cache_leaves(bank.cache):
                 leaf.zero_()
             self._prefill(bank, None, prompts, 0)  # the first tokens land in bank.tok
             bank.pos.fill_(s)
@@ -765,8 +801,10 @@ class Engine:
         live slot; `deadlines` (seconds from enqueue) cancel overdue requests
         like EOS.
 
-        Routing as the reference: `step_mode="mixed"` runs the mixed loop,
-        otherwise `kv_layout` picks the paged or contiguous sequential loop.
+        Routing as the reference: `step_mode="mixed"` runs the mixed loop
+        on a packed-capable stack (every mixer global attention), otherwise
+        `kv_layout` picks the paged loop (a stack with a global-attention
+        layer to page) or the contiguous sequential loop.
         All three give the same tokens under greedy sampling, with the
         prefix cache and preemption on or off."""
         with torch.inference_mode():
@@ -796,23 +834,32 @@ class Engine:
             replays its pre-preemption tokens. Requests that complete at
             once are finalized and the next is taken. An injected fault
             re-queues the request in hand (or fails it) and takes the next:
-            the live slots never see it."""
+            the live slots never see it. On an MoE stack the region's old
+            rows are put back when the request does not take the slot (the
+            reference writes its one-row cache into the slot only then):
+            the dead slot's rows keep feeding the router."""
+            region = [leaf for _, leaf in cache_leaves(_slot_view(bank.cache, slot))]
             while (req := sched.take_head()) is not None:
                 toks = np.asarray(req.tokens)
                 self._check_len(req.rid, len(req.prompt), max_new_tokens)
+                saved = None
                 try:
                     self._inj("kernel_dispatch", req.rid)
-                    for _, leaf in _leaves(_slot_view(bank.cache, slot)):
+                    if self._rows_interact:  # the slot keeps its old rows unless admitted
+                        saved = [leaf.clone() for leaf in region]
+                    for leaf in region:
                         leaf.zero_()
                     first = self._prefill(bank, slot, toks[None], 0)
                     self._inj("device_step", req.rid)
                     t0 = int(self._sync(first, rid=req.rid)[0])
                 except InjectedFault as e:
                     self._note_fault(e)
+                    _put_back(region, saved)
                     sched.retry_request(req)
                     continue
                 self._clear_fault_streak()
                 if not sched.admit_request(slot, req, t0):
+                    _put_back(region, saved)
                     continue
                 bank.tok[slot] = t0
                 bank.pos[slot] = len(toks)
@@ -849,15 +896,17 @@ class Engine:
                     refill()
                     continue
                 self._watchdog.start_step()
+                bank.ran = False
                 try:
                     self._inj("kernel_dispatch")
                     out = self._decode_chunk(bank, chunk_n)
                     self._inj("device_step")
                     toks_np = self._sync(out)  # one sync per chunk
                 except InjectedFault as e:
-                    # discard the step: undo its tok / pos, then retry it
+                    # discard the step: undo its tok / pos (and the ring and
+                    # recurrent state it advanced), then retry it
                     self._on_step_fault(sched, e, sched.fault_slot)
-                    self._restage(bank, sched)
+                    bank.undo()
                     continue
                 self._step_done()
                 for s in sched.absorb_chunk(toks_np):
@@ -899,7 +948,8 @@ class Engine:
                 page_size=lay.page_size, n_pages=lay.n_pages, kv_dtype=self.sc.kv_dtype,
                 device=self.device,
             )
-            self._paged = _Bank(cache, self.sc.max_batch, self.device)
+            self._paged = _Bank(cache, self.sc.max_batch, self.device, self.mc,
+                                faults=self._injector is not None)
         return self._alloc, self._paged
 
     def _recover_paged(self, sched: Scheduler, alloc, ctx: _PoolCtx) -> None:
@@ -936,7 +986,7 @@ class Engine:
         row = np.zeros((self._page_layout.pages_per_seq,), np.int32)
         row[: len(table)] = table
         row_t = torch.as_tensor(row, device=self.device)
-        for name, leaf in _leaves(cache):
+        for name, leaf in cache_leaves(cache):
             if name == "tbl":
                 leaf[:, slot] = row_t
 
@@ -946,8 +996,8 @@ class Engine:
             return
         srcs = torch.as_tensor([cw.src for cw in cows], device=self.device)
         dsts = torch.as_tensor([cw.dst for cw in cows], device=self.device)
-        for name, leaf in _leaves(cache):
-            if name in _POOL_LEAVES:
+        for name, leaf in cache_leaves(cache):
+            if name in POOL_LEAVES:
                 leaf[:, dsts] = leaf[:, srcs]
 
     def _pool_drop(self, alloc, seq: int, stream) -> None:
@@ -1136,6 +1186,7 @@ class Engine:
         out = bank.buf(("verified", r), (b, r + 1))
 
         def step():
+            bank.save()
             fed = pack[:t + 1]  # the pack's tokens, then the dump row t
             o = t + 1
             sid, pos = pack[o:o + t], pack[o + t:o + 2 * t]
@@ -1156,6 +1207,7 @@ class Engine:
             out[:, r].copy_(torch.cumprod(match.long(), dim=1).sum(dim=1))
 
         self._steps.run(bank.graphs, ("verify", t, r, block_q, drafts is not None), step)
+        bank.ran = True
         return out
 
     def _spec_round(self, sched: Scheduler, alloc, ctx: _PoolCtx, bank: _Bank, *,
@@ -1267,6 +1319,9 @@ class Engine:
                 self._set_tbl_row(ctx.cache, slot, alloc.table(seq))
                 try:
                     self._inj("kernel_dispatch", req.rid)
+                    for name, leaf in cache_leaves(_slot_view(bank.cache, slot)):
+                        if name not in POOL_LEAVES and name != "tbl":
+                            leaf.zero_()  # ring and recurrent state start empty
                     first = self._prefill(bank, slot, toks[None, start:], start)
                     self._inj("device_step", req.rid)
                     t0 = int(self._sync(first, rid=req.rid)[0])
@@ -1324,11 +1379,13 @@ class Engine:
                     # a speculative round replaces the decode chunk; pages
                     # grow per verify segment inside the round
                     self._watchdog.start_step()
+                    bank.ran = False
                     try:
                         finished = self._spec_round(sched, alloc, ctx, bank, budget=spec_budget,
                                                     pchunk=1, block_q=spec_block_q)
                     except InjectedFault as e:
                         self._on_step_fault(sched, e, fault_slot)
+                        bank.undo()
                         continue
                     self._step_done()
                     for s in finished:
@@ -1341,15 +1398,17 @@ class Engine:
                     continue
                 # dead slots step in lockstep on page 0; one sync per chunk
                 self._watchdog.start_step()
+                bank.ran = False
                 try:
                     self._inj("kernel_dispatch")
                     out = self._decode_chunk(bank, chunk_n)
                     self._inj("device_step")
                     toks_np = self._sync(out)
                 except InjectedFault as e:
-                    # discard the step: undo its tok / pos, then retry it
+                    # discard the step: undo its tok / pos (and the ring and
+                    # recurrent state it advanced), then retry it
                     self._on_step_fault(sched, e, fault_slot)
-                    self._restage(bank, sched)
+                    bank.undo()
                     continue
                 self._step_done()
                 for s in sched.absorb_chunk(toks_np):
@@ -1446,6 +1505,7 @@ class Engine:
             out = bank.buf("sampled", (b,))
 
             def step():
+                bank.save()
                 tokens, seq_ids, positions = pack[:t], pack[t:2 * t], pack[2 * t:3 * t]
                 kv_len, last_rows = pack[3 * t:3 * t + b], pack[3 * t + b:]
                 logits, _ = forward_packed(self.params, tokens, seq_ids, positions, kv_len,
@@ -1454,6 +1514,7 @@ class Engine:
 
             self._inj("kernel_dispatch")
             self._steps.run(bank.graphs, ("packed", t, block_q), step)
+            bank.ran = True
             self._inj("device_step")
             return self._sync(out)  # one sync per step
 
@@ -1484,6 +1545,7 @@ class Engine:
                     self.peak_active = sched.note_peak()
                     continue
                 self._watchdog.start_step()
+                bank.ran = False
                 try:
                     if self._spec is not None:
                         # speculative rounds carry verify chains and prefill chunks
@@ -1496,8 +1558,10 @@ class Engine:
                         plan = self._plan_grown(sched, alloc, ctx, budget, pchunk)
                         finished = sched.commit(plan, dispatch(plan)) if plan.segments else []
                 except InjectedFault as e:
-                    # discard the step (its inputs are staged anew) and retry it
+                    # discard the step (its inputs are staged anew, what it
+                    # saved is put back) and retry it
                     self._on_step_fault(sched, e, fault_slot)
+                    bank.undo()
                     continue
                 self._step_done()
                 note_prefilled()

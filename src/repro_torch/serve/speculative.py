@@ -88,7 +88,8 @@ class DraftModel:
         valid length by a preemption resume) re-prefills its whole committed
         stream into a zeroed region; otherwise only the missing tail is fed
         (from `start`). Device work only, no host sync."""
-        from repro_torch.serve.engine import _leaves, _slot_view  # lazy: no cycle
+        from repro_torch.models.transformer import cache_leaves
+        from repro_torch.serve.engine import _slot_view  # lazy: no cycle
 
         for s, sl in enumerate(sched.slots):
             if not sl.live or sl.prefilling:
@@ -100,7 +101,7 @@ class DraftModel:
                 continue
             stream = np.asarray(sl.cache_tokens())  # token ids at positions [0, kv)
             if fresh:
-                for _, leaf in _leaves(_slot_view(self.bank.cache, s)):
+                for _, leaf in cache_leaves(_slot_view(self.bank.cache, s)):
                     leaf.zero_()
             self.runner._prefill(self.bank, s, stream[None, start:], start)
             self.pos[s] = len(stream)

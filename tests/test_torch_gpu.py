@@ -77,7 +77,7 @@ FWD_CASES = [
 
 
 @pytest.mark.parametrize("case", FWD_CASES)
-@pytest.mark.parametrize("d", [32, 48, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
 def test_fwd_kernel_matches_plain(cuda, case, d):
     kind, window, chunk, q_offset, skip = case
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -157,7 +157,7 @@ def test_bwd_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 48, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
 def test_bwd_kernel_head_dims(cuda, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(d)
     m = tb.MaskSpec("causal")
@@ -244,7 +244,25 @@ def test_fa2_kernel_matches_plain_and_k1(cuda, case):
 TC_FWD = [(k1.flashd_fwd, k1.flashd_fwd_plain), (k6.fa2_fwd, k6.fa2_fwd_plain)]
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_fa2_kernel_at_head_dim_16(cuda, case):
+    """K6 at head dim 16 (every A12 smoke config's), f32 and bf16, against
+    its plain version and K1."""
+    kind, window, chunk, q_offset, _ = case
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    args = tuple(torch.randn(2, s_, h, 16, generator=gen, device=cuda).transpose(1, 2)
+                 for s_, h in ((150, 4), (170, 2), (170, 2)))
+    m = tb.MaskSpec(kind, window, chunk, q_offset)
+    o, lam = k6.fa2_fwd(*args, mask=m)
+    o_p, lam_p = k6.fa2_fwd_plain(*args, mask=m)
+    _close(o, o_p)
+    _close(lam, lam_p)
+    _close(o, k1.flashd_fwd(*args, mask=m)[0])
+    ob, _ = k6.fa2_fwd(*(x.bfloat16() for x in args), mask=m)
+    _close(ob, k6.fa2_fwd_plain(*(x.bfloat16() for x in args), mask=m)[0], BF16_TOL)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 5, 8])
 @pytest.mark.parametrize("sq, skv", [(1, 1), (63, 63), (65, 65), (200, 1000)])
 def test_tc_fwd_kernels_ragged_tiles_and_groups(cuda, sq, skv, group):
     """K1 and K6 (tensor cores) at lengths that are not multiples of the
@@ -380,7 +398,7 @@ DECODE_CASES = [
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
-@pytest.mark.parametrize("group", [1, 2, 8])
+@pytest.mark.parametrize("group", [1, 2, 5, 8])
 def test_decode_kernel_matches_plain(cuda, case, group):
     n_splits, window, chunk, with_start, fused = case
     gen = torch.Generator(device=cuda).manual_seed(group)
@@ -404,7 +422,7 @@ def test_decode_kernel_matches_plain(cuda, case, group):
     _close(ob, ob_p, BF16_TOL)
 
 
-@pytest.mark.parametrize("d", [32, 48, 64])
+@pytest.mark.parametrize("d", [16, 32, 48, 64])
 def test_decode_kernel_head_dims(cuda, d):
     gen = torch.Generator(device=cuda).manual_seed(d)
     q = torch.randn(3, 4, d, generator=gen, device=cuda)
@@ -417,11 +435,12 @@ K2_SWEEP = [(b, s_max) for b in (1, 4, 32) for s_max in (1, 64, 512, 4096)]
 
 
 @pytest.mark.parametrize("b, s_max", K2_SWEEP)
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_decode_kernel_default_splits_sweep(cuda, b, s_max, group):
     """K2 at its own split choice (`gpu_decode_splits` for this card)
     against the plain version at the same splits: cache_len 0, 1, full and
-    a ragged one; head dims 32, 48, 64, 128; f32 and bf16; fused and
+    a ragged one; head dims 32, 48, 64, 128; every group up to 8 (3, 5, 6
+    and 7 leave rows of the group instance idle); f32 and bf16; fused and
     unfused; an empty row exactly 0 / NEG_INF."""
     gen = torch.Generator(device=cuda).manual_seed(b * 10_000 + s_max + group)
     hkv = 2
@@ -565,6 +584,8 @@ PAGED_CASES = [
     (4, 16, 11, 0),
     (8, 8, 0, 12),
     (2, 128, 0, 0),
+    (5, 16, 0, 0),
+    (3, 32, 0, 20),
 ]
 
 
@@ -619,6 +640,8 @@ VARLEN_CASES = [
     (4, 4, 16, 9, 0),
     (8, 8, 8, 0, 10),
     (2, 128, 8, 0, 0),
+    (6, 16, 8, 0, 0),
+    (7, 8, 16, 0, 12),
 ]
 
 
@@ -655,11 +678,12 @@ def test_varlen_kernel_matches_plain(cuda, case):
                                       **kw))
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("page", [4, 8, 16, 32, 64])
 def test_paged_decode_kernel_pages_and_groups(cuda, page, group):
     """K3 at every page size the engine can choose (a split spans several
-    small pages, or a page several splits) and every GQA group, in f32,
+    small pages, or a page several splits) and every GQA group up to 8
+    (3, 5, 6 and 7 partly fill the group instance they run in), in f32,
     bf16 and over an int8 pool: one launch, against the plain version in
     the reference's per-page order and in the kernel's split order."""
     gen = torch.Generator(device=cuda).manual_seed(page * 10 + group)
@@ -686,6 +710,52 @@ def test_paged_decode_kernel_pages_and_groups(cuda, page, group):
         assert torch.isfinite(oi).all()
         _close(oi, k2.flashd_decode_paged_plain(qx, ki, vi, tbl_i, cl, k_scale=ks, v_scale=vs),
                tol)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("page", [4, 16, 64])
+def test_paged_kernels_at_head_dim_16(cuda, page, group, pool):
+    """K3 and K4 at head dim 16, where a byte-pool row is one 16-byte copy
+    and a bf16 q row two (lanes past them idle): f32 and bf16 pools with q
+    of their dtype, int8 and fp8 pools with f32 and bf16 q; K4 on a pack
+    with decode rows, a verify chain (the CUDA-core body) and a prompt and a
+    chunk (the tensor cores), under the causal, local and chunked masks.
+    A byte pool's values reach |O| ≈ 7 here, so bf16 outputs are held to
+    2^-7·max|O| — between one and two bf16 ulps of the largest |O| — or
+    BF16_TOL if larger."""
+    gen = torch.Generator(device=cuda).manual_seed(page * 10 + group)
+    hkv, d, n_tbl = 2, 16, 160 // page
+    full = n_tbl * page
+    lengths = [0, 1, page + 1, full - 3, full]
+    byte = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(pool)
+    kp, vp, tbl, ks, vs = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d,
+                                      byte or torch.float32)
+    if byte is None:
+        kp, vp = kp.to(getattr(torch, pool)), vp.to(getattr(torch, pool))
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn(len(lengths), hkv * group, d, generator=gen, device=cuda)
+    seq_ids, q_pos = _pack(lengths, [0, 1, 5, 40, 37], 8)  # decode, verify, prompt, chunk
+    sid, qp = (torch.tensor(x, dtype=torch.int32, device=cuda) for x in (seq_ids, q_pos))
+    qv = torch.randn(len(seq_ids), hkv * group, d, generator=gen, device=cuda)
+    q_types = (torch.float32, torch.bfloat16) if byte is not None else (kp.dtype,)
+    sc = dict(k_scale=ks, v_scale=vs)
+    k2.paged_launches = k4.launches = 0
+    def bound(dt, want):
+        return TOL if dt == torch.float32 else max(BF16_TOL, 2.0 ** -7 * float(want.abs().max()))
+
+    for dt in q_types:
+        for mask in ({}, dict(window=11), dict(chunk=24)):
+            o = k2.flashd_decode_paged(q.to(dt), kp, vp, tbl, cl, **sc, **mask)
+            want = k2.flashd_decode_paged_plain(q.to(dt), kp, vp, tbl, cl, **sc, **mask)
+            assert torch.isfinite(o).all() and (o[0] == 0).all()
+            _close(o, want, bound(dt, want))
+            ov = k4.flashd_varlen(qv.to(dt), kp, vp, tbl, sid, qp, cl, block_q=8, **sc, **mask)
+            want = k4.flashd_varlen_plain(qv.to(dt), kp, vp, tbl, sid, qp, cl, block_q=8, **sc,
+                                          **mask)
+            assert torch.isfinite(ov).all() and (ov[qp < 0] == 0).all()
+            _close(ov, want, bound(dt, want))
+    assert k2.paged_launches == k4.launches == 3 * len(q_types)
 
 
 def _plan(kind: str) -> StepPlan:
@@ -881,6 +951,76 @@ def test_paged_and_mixed_engines_kernel_path_match_plain(cuda, arch, mode):
     for g, w, c in zip(got, want, base):
         np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(g, c)
+
+
+A12_LOOPS = {
+    "contiguous": dict(),
+    "paged": dict(kv_layout="paged", prefix_cache=False),
+    "mixed": dict(step_mode="mixed", page_size=8, prefix_cache=False),
+}
+
+
+@pytest.mark.parametrize("loop", sorted(A12_LOOPS))
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "qwen3-moe-235b-a22b",
+                                  "recurrentgemma-9b"])
+def test_a12_engines_captured_eager_and_plain_agree(cuda, arch, loop):
+    """The MoE + chunked-attention, MoE and RG-LRU + local-attention stacks
+    at smoke width (head dim 16), f32: on each loop (a stack the loop does
+    not take falls back as the reference's engine does) the captured steps
+    give the eager steps' tokens, launch counts and host syncs, and the
+    plain route's tokens; K1 runs the forward under the stack's masks and
+    agrees with the plain route's logits."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=1)
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (7, 37, 9, 30)]
+    sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, **A12_LOOPS[loop])
+    captured = _served(Engine(params, cfg, sc, device=cuda), reqs, 8)
+    eager = _served(Engine(params, cfg, sc, device=cuda, graphs=False), reqs, 8)
+    for got, want in zip(captured[:3], eager[:3]):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert captured[3:5] == eager[3:5] and sum(captured[3]) > 0
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    before = launch_counts()
+    plain = Engine(params, plain_cfg, sc, device=cuda).serve(reqs, 8)
+    assert launch_counts() == before
+    for g, w in zip(captured[0], plain):
+        np.testing.assert_array_equal(g, w)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 40)), device=cuda)  # S past the ring
+    k1.launches = 0
+    with torch.inference_mode():
+        logits, aux = apply_lm(params, {"tokens": toks}, cfg)
+        logits_p, aux_p = apply_lm(params, {"tokens": toks}, plain_cfg)
+    assert k1.launches == sum(m.startswith("attn") for m, _ in
+                              (*cfg.pattern * cfg.n_blocks, *cfg.remainder))
+    _close(logits[..., :cfg.vocab_size], logits_p[..., :cfg.vocab_size], 1e-4)
+    for key in aux:
+        assert abs(float(aux[key]) - float(aux_p[key])) <= 1e-5, key
+
+
+@pytest.mark.parametrize("loop", ["paged", "mixed"])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "qwen3-moe-235b-a22b"])
+def test_moe_pool_engines_repeat_beside_dead_slots(cuda, arch, loop):
+    """MoE stacks on the pool, smoke width, f32: 7 requests of staggered
+    prompt lengths on 4 slots, so later waves decode beside dead slots that
+    step on the garbage page 0 (and pack padding rows that write it), whose
+    rows feed the router. Duplicate writes to page 0 store their last
+    writer's value, so a captured engine served twice, a second captured
+    engine and an eager one give the same tokens."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    params = init_lm(cfg, device=cuda, seed=2)
+    rng = np.random.default_rng(5)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+            for n in (3, 29, 11, 40, 7, 18, 33)]
+    sc = ServeConfig(max_batch=4, max_len=64, decode_chunk=3, **A12_LOOPS[loop])
+    first = Engine(params, cfg, sc, device=cuda)
+    runs = [first.serve(reqs, 9), first.serve(reqs, 9),
+            Engine(params, cfg, sc, device=cuda).serve(reqs, 9),
+            Engine(params, cfg, sc, device=cuda, graphs=False).serve(reqs, 9)]
+    for other in runs[1:]:
+        for g, w in zip(other, runs[0]):
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("impl", ["flashd_gpu", "fa2_gpu"])

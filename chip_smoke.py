@@ -11,7 +11,8 @@ non-zero:
   2. building the CUDA kernels from src/repro_torch/csrc with nvcc, one
      process per source, all at once; per library the tensor-core (HGMMA,
      HMMA) and FFMA instruction counts of its SASS (cuobjdump), asserting
-     that K1, K4, K5 and K6 run on the tensor cores;
+     that K1, K4, K5 and K6 run on the tensor cores; the registers and
+     spills of its head-dim-96 kernels;
   3. K1 `flashd_fwd` against `flashd_fwd_plain` at qwen3-0.6b widths
      (Hq 16, Hkv 8, d 128, Sq = Skv = 2048): four mask kinds, q_offset,
      skip on/off, fully masked rows; f32 and bf16; timed in both dtypes
@@ -119,6 +120,20 @@ non-zero:
      (the rings) and K3 (the NoPE layer's pages) launched, and each held
      to its plain version on the served engine's ring and pool; a decode
      step's breakdown, parameter bytes and peak memory;
+ 19. two lines. phi-3-vision-4.2b at full width (d 3072, Hq = Hkv = 32 of
+     head dim 96, d_ff 8192, vocab 32064, 256 patch rows), f32, seeded
+     random weights (`_phi3_phase`): K1, K6 and K5 at its attention shape
+     (B 1, S 2048, causal) against plain in f32 and bf16, timed beside SDPA
+     and their bounds; one train step with `patch_embeds` on the kernel,
+     plain and FA2 paths at the depth whose train state fits the card
+     (printed); the forward at all 32 layers with 256 patch rows, kernel
+     vs plain logits; text requests through the captured contiguous, paged
+     and mixed loops, kernel = plain tokens, K2 / K3 / K4 launched and each
+     held to plain (and timed) on the served engine's cache, pool or a pack
+     over it. Then mamba2-2.7b at full width and depth (64 `ssm` layers),
+     f32 (`_mamba2_phase`): the chunked forward against the captured
+     decode chain, the contiguous loop captured = eager, paged and mixed
+     engines routed to it, no kernel launched;
  14. (last) the kernels line (JSON) and the total seconds, then the result
      line (JSON).
 
@@ -804,7 +819,12 @@ def _a12_phase(dev, card: str, flush):
             if name == "kernel":  # K2 / K3 on this engine's ring and pool
                 blocks = (eng._paged if loop == "paged" else eng._contig[4]).cache["blocks"]
                 with torch.inference_mode():
-                    direct[loop] = _a12_direct(k2, blocks, qd, n_sm, loop)
+                    if loop == "paged":
+                        direct[loop] = _served_direct(blocks["pos3"], qd, n_sm, loop,
+                                                      (150, 1, 256, 77), "the NoPE layer's pool")
+                    else:
+                        direct[loop] = _served_direct(blocks["pos0"], qd, n_sm, loop,
+                                                      (143, 300, 511, 700), "a chunked layer's ring")
             del eng
         (out, dt, ttft, got, graphs), plain = runs["kernel"], runs["plain"]
         for other in runs:
@@ -848,43 +868,564 @@ def _a12_phase(dev, card: str, flush):
                                     "flashd_decode_paged": direct["paged"][0]}
 
 
-def _a12_direct(k2, blocks, q, n_sm: int, loop: str):
-    """Phase 18's direct check of one served llama4 engine: K2 on the ring
-    of its first chunked layer (contiguous loop) or K3 on its NoPE layer's
-    pool (paged loop), at the engine's shapes, against the plain version in
-    the kernel's split order. The ring is read at pos % len + 1 for
-    positions before and past a wrap, with no chunk passed, as the decode
-    step reads it; the pool through a block table over its pages.
-    Returns (max|Δ|, a report)."""
+def _served_direct(layer: dict, q, n_sm: int, loop: str, reads, what: str, gen=None,
+                   flush=None):
+    """One kernel on one layer of a served engine's cache, at the engine's
+    shapes, against its plain version in the kernel's split order (outside
+    the counted runs). q [B, Hq, d]; the layer's leaves carry the stacked
+    layer axis.
+
+      * contiguous: K2 on the layer's cache or ring, each row read at
+        position `reads[i]` over pos % len + 1 slots with no window or
+        chunk passed, as the decode step reads a ring;
+      * paged: K3 on the layer's pool through a block table over its pages,
+        cache lengths `reads`;
+      * mixed: K4 on the same kind of pool with a mixed step's pack (the
+        engine's packer, `pack_plan`): a decode row at each position of
+        `reads` and a 16-row prefill chunk at positions 96–111 of one more
+        slot; rows drawn from `gen`.
+
+    With `flush`, also the kernel's device time (graph replays,
+    `_graph_ms`), the plain version's and one SDPA call's over the same keys
+    with a boolean mask (CUDA events; the gather is set-up), and the bound:
+    the live keys and values, q and o, over the HBM rate (f32).
+    Returns (max|Δ|, a report, the timing row or None)."""
+    import numpy as np
     import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.attention import gather_pages
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_varlen as k4
+    from repro_torch.kernels.tuning import bucket_pow2, choose_varlen_blocks
+    from repro_torch.serve.engine import pack_plan
+    from repro_torch.serve.scheduler import Segment, StepPlan
 
     b, hq, d = q.shape
+    dev = q.device
     if loop == "contiguous":
-        ring = blocks["pos0"]
-        kc, vc = (ring[x][0].transpose(1, 2) for x in ("k", "v"))  # [B, Hkv, len, d]
+        kc, vc = (layer[x][0].transpose(1, 2) for x in ("k", "v"))  # [B, Hkv, len, d]
         hkv, n = kc.shape[1], kc.shape[2]
-        pos = torch.tensor([143, 300, 511, 700], device=q.device)[:b]
+        pos = torch.tensor(reads, device=dev)[:b]
         eff = (pos % n + 1).to(torch.int32)
-        o = k2.flashd_decode(q, kc, vc, eff)
-        o_p = k2.flashd_decode_plain(q, kc, vc, eff, n_splits=k2.gpu_decode_splits(b, hkv, n, n_sm))
-        what = (f"K2 on a chunked layer's ring (B{b} Hq{hq} Hkv{hkv} d{d}, {n} slots, positions "
-                f"{pos.tolist()} read over {eff.tolist()} slots)")
+        call = lambda: k2.flashd_decode(q, kc, vc, eff)
+        plain = lambda: k2.flashd_decode_plain(q, kc, vc, eff,
+                                               n_splits=k2.gpu_decode_splits(b, hkv, n, n_sm))
+        qs, kg, vg, lens, live = q[:, :, None], kc, vc, eff, int(eff.sum())
+        rows, n_q = None, b
+        label = (f"K2 on {what} (B{b} Hq{hq} Hkv{hkv} d{d}, {n} slots, positions "
+                 f"{pos.tolist()} read over {eff.tolist()} slots)")
     else:
-        pool = blocks["pos3"]
-        kp, vp = pool["k_pages"][0], pool["v_pages"][0]  # [P, page, Hkv, d]
+        kp, vp = layer["k_pages"][0], layer["v_pages"][0]  # [P, page, Hkv, d]
         n_pages, page, hkv = kp.shape[0], kp.shape[1], kp.shape[2]
-        n_tbl = pool["tbl"].shape[-1]
-        tbl = (torch.arange(b * n_tbl, device=q.device) % (n_pages - 1) + 1).to(torch.int32)
-        tbl = tbl.reshape(b, n_tbl)
-        cl = torch.tensor([150, 1, n_tbl * page, 77], dtype=torch.int32, device=q.device)[:b]
-        o = k2.flashd_decode_paged(q, kp, vp, tbl, cl)
-        o_p = k2.flashd_decode_paged_plain(
-            q, kp, vp, tbl, cl, n_splits=k2.gpu_decode_splits(b, hkv, n_tbl * page, n_sm))
-        what = (f"K3 on the NoPE layer's pool (B{b} Hq{hq} Hkv{hkv} d{d}, {n_pages} pages of "
-                f"{page}, {n_tbl} a row, lengths {cl.tolist()})")
+        n_tbl = layer["tbl"].shape[-1]
+        n_seq = b if loop == "paged" else len(reads) + 1
+        tbl = (torch.arange(n_seq * n_tbl, device=dev) % (n_pages - 1) + 1).to(torch.int32)
+        tbl = tbl.reshape(n_seq, n_tbl)
+        if loop == "paged":
+            lens = torch.tensor(reads, dtype=torch.int32, device=dev)[:b]
+            call = lambda: k2.flashd_decode_paged(q, kp, vp, tbl, lens)
+            plain = lambda: k2.flashd_decode_paged_plain(
+                q, kp, vp, tbl, lens, n_splits=k2.gpu_decode_splits(b, hkv, n_tbl * page, n_sm))
+            qs, rows, n_q, live = q[:, :, None], None, b, int(lens.sum())
+            label = (f"K3 on {what} (B{b} Hq{hq} Hkv{hkv} d{d}, {n_pages} pages of {page}, "
+                     f"{n_tbl} a row, lengths {lens.tolist()})")
+        else:
+            one = lambda n_, st: Segment(slot=n_, tokens=np.zeros(1, np.int32), start=st,
+                                         emits=True)
+            plan = StepPlan(segments=tuple(one(i, st) for i, st in enumerate(reads)) + (
+                Segment(slot=len(reads), tokens=np.zeros(16, np.int32), start=96, emits=False),),
+                n_tokens=len(reads) + 16)
+            bq = choose_varlen_blocks(bucket_pow2(plan.n_tokens, lo=8), d, d, group=hq // hkv,
+                                      page=page, segment_hint=1).block_q
+            _, sid_np, qpos_np, kvl_np, _ = pack_plan(plan, bq, n_seq)
+            sid, qp = torch.as_tensor(sid_np, device=dev), torch.as_tensor(qpos_np, device=dev)
+            kvl = torch.as_tensor(kvl_np, device=dev)
+            qv = torch.randn(len(sid_np), hq, d, generator=gen, device=dev)
+            call = lambda: k4.flashd_varlen(qv, kp, vp, tbl, sid, qp, kvl, block_q=bq)
+            plain = lambda: k4.flashd_varlen_plain(qv, kp, vp, tbl, sid, qp, kvl, block_q=bq)
+            rows = torch.clamp(sid.long(), min=0)
+            qs, lens, n_q, live = qv[:, :, None], kvl, int((qp >= 0).sum()), int(kvl.sum())
+            label = (f"K4 on {what} (T{len(sid_np)} block_q {bq}: {len(reads)} decode rows at "
+                     f"{list(reads)} + a 16-row chunk; Hq{hq} Hkv{hkv} d{d}, {n_pages} pages of "
+                     f"{page}, kv_len {kvl_np.tolist()})")
+        if flush is not None:  # SDPA's keys: the pages gathered per sequence (set-up)
+            kg, vg = (gather_pages(x, tbl).transpose(1, 2) for x in (kp, vp))
+            if rows is not None:
+                kg, vg = kg[rows], vg[rows]
+    o, o_p = call(), plain()
     err = _err(o, o_p)
-    assert torch.isfinite(o).all() and err <= F32_TOL, (what, err)
-    return err, f"{what}: max|Δ| against plain {err:.2e} (bound {F32_TOL})"
+    assert torch.isfinite(o).all() and err <= F32_TOL, (label, err)
+    report = f"{label}: max|Δ| against plain {err:.2e} (bound {F32_TOL})"
+    if flush is None:
+        return err, report, None
+    at = torch.arange(kg.shape[2], device=dev)
+    if rows is None:  # one query row per sequence: keys before its length
+        vis, pairs = (at[None] < lens.long()[:, None])[:, None, None], live
+    else:  # packed rows: causal within the row's sequence
+        qpl = qp.long()
+        keep = (at[None] <= qpl[:, None]) & (at[None] < kvl.long()[rows][:, None])
+        vis, pairs = keep[:, None, None], int(keep[qpl >= 0].sum())
+    lib = lambda: F.scaled_dot_product_attention(qs, kg, vg, attn_mask=vis, enable_gqa=True)
+    row = {"device_ms": _graph_ms(call, flush), "plain_ms": _time_ms(plain, reps=3, flush=flush),
+           "library_ms": _time_ms(lib, flush=flush),
+           "bound_ms": _bytes_bound(2 * live * hkv * d * 4 + 2 * n_q * hq * d * 4,
+                                    4 * d * hq * pairs),
+           "max_abs_err": err, "shape": label}
+    del kg, vg
+    return err, (f"{report}; device {row['device_ms'] * 1e3:.2f} us (graph replays), plain "
+                 f"{row['plain_ms']:.3f} ms, sdpa with a boolean mask "
+                 f"{row['library_ms'] * 1e3:.2f} us, byte bound {row['bound_ms'] * 1e3:.2f} us"), row
+
+
+PHI3_SEQ = 2048  # phase 19: K1 / K5 / K6's S, and the forward's (256 patch rows + 1792 tokens)
+PHI3_TRAIN_TEXT = 1024  # phase 19's train step: B 1, 256 patch rows + 1024 tokens
+# phase 19's train depth: at most TRAIN_COPIES copies of the cut stack's
+# parameters live at once in a step (the parameters, two AdamW moments, the
+# gradients and their clipped copy, the new parameters and moments, the
+# numerics guard's selected trees), within TRAIN_MEM_SHARE of the card's memory
+TRAIN_COPIES, TRAIN_MEM_SHARE = 10, 0.75
+MAMBA2_SEQ = 512  # phase 19's mamba2 forward and decode chain: B 2 x S 512
+
+
+def _ptxas_hd(name: str, tag: str) -> str:
+    """Registers and spill bytes of the kernels of one library whose mangled
+    name holds `tag` (a template argument: 'Li96E' for head dim 96), read
+    from the build's ptxas log."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    regs, stores, loads, fn = [], 0, 0, ""
+    for ln in _build.lib_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1) or m.group(2)
+        if tag not in fn:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            stores, loads = stores + int(m.group(1)), loads + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            regs.append(int(m.group(1)))
+    if not regs:
+        return "no kernel"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, spill stores {stores} B, "
+            f"loads {loads} B")
+
+
+def _phi3_attn(dev, cfg, flush):
+    """Phase 19's direct checks of K1, K6 and K5 at phi-3-vision's attention
+    shape (B 1, Hq = Hkv = 32, head dim 96, S PHI3_SEQ, causal) against
+    their plain versions: O and Λ within F32_TOL in f32 (K6's O against
+    K1's too), O within BF16_TOL in bf16; dQ, dK, dV within GRAD_RTOL /
+    GRAD_ATOL per entry in f32 and GRAD_BF16·max|grad| in bf16. Each timed
+    (CUDA events, L2 flushed) in both dtypes beside its plain version (f32),
+    one SDPA call in the same dtype (its backward for K5) and its bounds.
+    Returns ({kernel name: row of phi3_d96_* values}, report)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.blockwise import MaskSpec
+    from repro_torch.kernels import fa2_fwd as k6
+    from repro_torch.kernels import flashd_bwd as k5
+    from repro_torch.kernels import flashd_fwd as k1
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, s, hq, hkv, d = 1, PHI3_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    causal = MaskSpec("causal")
+    # q, k, v, dO as [B, H, S, d] views of model-layout tensors
+    x32 = [torch.randn(b, s, h, d, generator=gen, device=dev).transpose(1, 2)
+           for h in (hq, hkv, hkv, hq)]
+    pairs = b * s * (s + 1) // 2
+    shape = f"B{b} Hq{hq} Hkv{hkv} d{d} Sq=Skv={s} causal, f32 (3xTF32 on the tensor cores) and bf16"
+    elems = 2 * b * s * hq * d + 2 * b * s * hkv * d  # q, O; k, v
+    k5_elems = b * s * d * (3 * hq + 2 * hkv) + b * s * d * (hq + 2 * hkv)
+    ops = {"fwd": 4 * d * hq * pairs, "bwd": 10 * d * hq * pairs}
+    bounds = {"fwd": _attn_bounds(ops["fwd"], 4 * elems + 4 * b * hq * s, 2 * elems + 4 * b * hq * s),
+              "bwd": _attn_bounds(ops["bwd"], 4 * k5_elems + 4 * b * hq * s,
+                                  2 * k5_elems + 4 * b * hq * s)}
+    rows, report = {}, []
+    for name, kern, plain, kind in (
+            ("flashd_fwd", k1.flashd_fwd, k1.flashd_fwd_plain, "fwd"),
+            ("fa2_fwd", k6.fa2_fwd, k6.fa2_fwd_plain, "fwd"),
+            ("flashd_bwd", k5.flashd_bwd, k5.flashd_bwd_plain, "bwd")):
+        row = {}
+        for dt, tag in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
+            q, k, v, do = (x.to(dt) for x in x32)
+            if kind == "fwd":
+                args = (q, k, v)
+                (o, lam), (o_p, lam_p) = kern(*args, mask=causal), plain(*args, mask=causal)
+                if dt == torch.float32:
+                    err = max(_err(o, o_p), _err(lam, lam_p))
+                    if name == "fa2_fwd":
+                        err = max(err, _err(o, k1.flashd_fwd(*args, mask=causal)[0]))
+                    ok = err <= F32_TOL
+                else:
+                    err = _err(o, o_p)
+                    ok = err <= BF16_TOL
+                ok = ok and bool(torch.isfinite(o).all())
+                lib_x = tuple(x.contiguous() for x in args)
+                lib = lambda: F.scaled_dot_product_attention(*lib_x, is_causal=True,
+                                                             enable_gqa=True)
+            else:
+                args = (q, k, v, *k1.flashd_fwd_plain(q, k, v, mask=causal), do)
+                got, want = kern(*args, mask=causal), plain(*args, mask=causal)
+                err, ok = 0.0, True
+                for a, w in zip(got, want):
+                    diff = (a.float() - w.float()).abs()
+                    if dt == torch.float32:
+                        ok = ok and bool((diff <= GRAD_ATOL + GRAD_RTOL * w.float().abs()).all())
+                    else:
+                        ok = ok and float(diff.max()) <= GRAD_BF16 * float(w.float().abs().max())
+                    ok = ok and bool(torch.isfinite(a).all())
+                    err = max(err, float(diff.max()))
+                del got, want
+                q_l, k_l, v_l = (x.contiguous().requires_grad_() for x in (q, k, v))
+                o_l = F.scaled_dot_product_attention(q_l, k_l, v_l, is_causal=True,
+                                                     enable_gqa=True)
+                do_l = do.contiguous()
+                lib = lambda: torch.autograd.grad(o_l, (q_l, k_l, v_l), do_l, retain_graph=True)
+            assert ok, (name, "phi-3 d96", dt, err)
+            row[f"phi3_d96_{tag}max_abs_err"] = err
+            row[f"phi3_d96_{tag}ms"] = _time_ms(lambda: kern(*args, mask=causal), flush=flush)
+            row[f"phi3_d96_{tag}library_ms"] = _time_ms(lib, flush=flush)
+            if dt == torch.float32:
+                row["phi3_d96_plain_ms"] = _time_ms(lambda: plain(*args, mask=causal), reps=3,
+                                                    flush=flush)
+            del args, lib
+        row["phi3_d96_bound_ms"], row["phi3_d96_bound_by"] = bounds[kind]["3xtf32"]
+        row["phi3_d96_bf16_bound_ms"] = bounds[kind]["bf16"][0]
+        row["phi3_d96_shape"] = shape
+        rows[name] = row
+        report.append(
+            f"{name} max|Δ| f32 {row['phi3_d96_max_abs_err']:.2e}, bf16 "
+            f"{row['phi3_d96_bf16_max_abs_err']:.2e}; kernel {row['phi3_d96_ms']:.4f} / "
+            f"{row['phi3_d96_bf16_ms']:.4f} ms (f32 / bf16), plain {row['phi3_d96_plain_ms']:.3f} "
+            f"ms, sdpa{' backward' if kind == 'bwd' else ''} {row['phi3_d96_library_ms']:.4f} / "
+            f"{row['phi3_d96_bf16_library_ms']:.4f} ms; "
+            + _fmt_bounds(bounds[kind], ops[kind], {"kernel f32": row["phi3_d96_ms"],
+                                                    "kernel bf16": row["phi3_d96_bf16_ms"]}))
+    text = (f"K1, K6, K5 at {shape} against plain (bounds: f32 O, Λ {F32_TOL}, gradients rtol "
+            f"{GRAD_RTOL} atol {GRAD_ATOL}; bf16 O {BF16_TOL}, gradients {GRAD_BF16:.4f}"
+            f"·max|grad|): " + "; ".join(report))
+    return rows, text
+
+
+def _phi3_phase(dev, card: str, flush):
+    """Phase 19, phi-3-vision-4.2b at full width (d 3072, Hq = Hkv = 32 of
+    head dim 96, d_ff 8192, vocab 32064, 256 patch rows), f32, seeded random
+    weights:
+
+      * K1, K6 and K5 at its attention shape (`_phi3_attn`);
+      * one train step with `patch_embeds` (B 1, 256 patch rows + 1024
+        tokens) on the kernel path (K1 + K5), the plain path and the FA2
+        path (K6 + K5) from the same seeded weights: loss and grad norm
+        within TRAIN_REL[0] of plain. The stack is cut to the depth whose
+        train state fits the card (TRAIN_COPIES, TRAIN_MEM_SHARE);
+      * the forward at all 32 layers, 256 patch rows + 1792 tokens, kernel
+        against plain: the last position's logits within LOGIT_TOL;
+      * serving text (6 requests on 4 slots, prompts 32–128, 16 new,
+        max_len 256) through the captured contiguous, paged and mixed loops
+        on the kernel and the plain path: tokens identical; K2, K3, K4
+        launched, each also held to plain on the served engine's cache,
+        pool or a pack over its pool (`_served_direct`, timed); a captured
+        decode step's breakdown.
+
+    Counts are reset just before each kernel-path run. Returns (report,
+    launches per kernel over the kernel-path runs, {kernel: phi3_d96_* row})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels import fa2_fwd as k6
+    from repro_torch.kernels import flashd_bwd as k5
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_fwd as k1
+    from repro_torch.kernels import flashd_varlen as k4
+    from repro_torch.models.transformer import apply_lm, decode_step_lm, init_decode_cache, init_lm
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.graphs import StepGraphs
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    rows, attn_text = _phi3_attn(dev, cfg, flush)
+
+    def counts():
+        return {"flashd_fwd": k1.launches, "flashd_decode": k2.launches,
+                "flashd_decode_paged": k2.paged_launches, "flashd_varlen": k4.launches,
+                "flashd_bwd": k5.launches, "fa2_fwd": k6.launches}
+
+    def reset():
+        k1.launches = k2.launches = k2.paged_launches = k4.launches = k5.launches = 0
+        k6.launches = 0
+
+    launched = dict.fromkeys(counts(), 0)
+
+    def add(got):
+        for key in launched:
+            launched[key] += got[key]
+
+    gen = torch.Generator(device=dev).manual_seed(191)
+    patches = lambda n: torch.randn(n, cfg.frontend_tokens, cfg.d_model, generator=gen, device=dev)
+
+    # one train step, the stack cut to the depth whose train state fits
+    total = torch.cuda.get_device_properties(dev).total_memory
+    one = dataclasses.replace(cfg, n_layers=1).param_count()
+    per_layer = dataclasses.replace(cfg, n_layers=2).param_count() - one
+    n_train = min(cfg.n_layers, int((TRAIN_MEM_SHARE * total / (TRAIN_COPIES * 4)
+                                     - (one - per_layer)) // per_layer))
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=PHI3_TRAIN_TEXT,
+                                  global_batch=1, seed=0)).batch(0)
+    batch = {k_: torch.as_tensor(x, device=dev) for k_, x in data.items()}
+    batch["patch_embeds"] = patches(1)
+    tc = TrainConfig(warmup_steps=0, total_steps=4)  # the lr peaks at step 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train = {}
+    for name, impl in (("kernel", "flashd_gpu"), ("plain", "flashd_plain"), ("fa2", "fa2_gpu")):
+        c = dataclasses.replace(cfg, n_layers=n_train, attn_impl=impl)
+        state = init_train_state(c, tc, device=dev, seed=0)
+        step = make_train_step(c, tc)
+        torch.cuda.synchronize()
+        reset()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss, gnorm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+        train[name] = (loss, gnorm, time.perf_counter() - t)
+        got = counts()
+        del state, m, step
+        if name == "plain":
+            assert sum(got.values()) == 0, ("phi-3 train: the plain path launched a kernel", got)
+        else:
+            fwd = "flashd_fwd" if name == "kernel" else "fa2_fwd"
+            other = "fa2_fwd" if name == "kernel" else "flashd_fwd"
+            assert got[fwd] > 0 and got["flashd_bwd"] > 0 and got[other] == 0, (name, got)
+            add(got)
+    train_peak = torch.cuda.max_memory_allocated()
+    for name in ("kernel", "fa2"):
+        for i, what in ((0, "loss"), (1, "grad norm")):
+            x, y = train[name][i], train["plain"][i]
+            assert np.isfinite(x) and abs(x - y) <= TRAIN_REL[0] * abs(y), (name, what, x, y)
+    train_text = (
+        f"train step B1 x ({cfg.frontend_tokens} patch rows + {PHI3_TRAIN_TEXT} tokens), "
+        f"{n_train} of {cfg.n_layers} layers (the depth whose {TRAIN_COPIES} copies of the "
+        f"parameters fit {TRAIN_MEM_SHARE} of the card's {total / 1e9:.1f} GB; peak "
+        f"{train_peak / 1e9:.2f} GB allocated): loss / grad norm kernel {train['kernel'][:2]}, "
+        f"fa2 {train['fa2'][:2]}, plain {train['plain'][:2]} (bound {TRAIN_REL[0]} relative); "
+        f"seconds kernel {train['kernel'][2]:.2f}, fa2 {train['fa2'][2]:.2f}, plain "
+        f"{train['plain'][2]:.2f}")
+
+    # the forward at full depth, patch rows first
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, device=dev, seed=0)
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    rng = np.random.default_rng(19)
+    fb = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                 (1, PHI3_SEQ - cfg.frontend_tokens)), device=dev),
+          "patch_embeds": patches(1)}
+    fwd = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        reset()
+        with torch.inference_mode():
+            t = time.perf_counter()
+            logits, _ = apply_lm(params, fb, c, last_only=True)
+            torch.cuda.synchronize()
+            fwd[name] = (logits[0, -1, :cfg.vocab_size], time.perf_counter() - t)
+        got = counts()
+        if name == "kernel":
+            assert got["flashd_fwd"] == cfg.n_layers, got
+            add(got)
+        else:
+            assert sum(got.values()) == 0, ("phi-3 forward: the plain path launched a kernel", got)
+    logit_err = _err(fwd["kernel"][0], fwd["plain"][0])
+    assert logit_err <= LOGIT_TOL, ("phi-3 logits", logit_err)
+
+    # serving text through the three captured loops
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+            for n in (32, 57, 96, 128, 33, 40)]
+    n_new = 16
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    qd = torch.randn(4, cfg.n_heads, cfg.head_dim_, generator=gen, device=dev)
+    loops = {"contiguous": ({}, "flashd_decode", (150, 0, 255, 76), "the first layer's cache"),
+             "paged": (dict(kv_layout="paged"), "flashd_decode_paged", (150, 1, 256, 77),
+                       "the first layer's pool"),
+             "mixed": (dict(step_mode="mixed"), "flashd_varlen", (150, 221, 100),
+                       "the first layer's pool")}
+    report, direct, first = [], {}, None
+    for loop, (kw, kernel, reads, what) in loops.items():
+        sc = ServeConfig(max_batch=4, max_len=256, **kw)
+        runs = {}
+        for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+            eng = Engine(params, c, sc, device=dev)
+            reset()
+            t = time.perf_counter()
+            out = eng.serve(reqs, n_new)
+            torch.cuda.synchronize()
+            runs[name] = (out, time.perf_counter() - t, float(np.mean(list(eng.ttft.values()))),
+                          counts(), eng._steps.captures)
+            if eng._alloc is not None:
+                eng._alloc.check()
+            if name == "kernel":
+                layer = (eng._contig[4] if loop == "contiguous" else eng._paged).cache["blocks"]
+                with torch.inference_mode():
+                    direct[kernel] = _served_direct(layer["pos0"], qd, n_sm, loop, reads, what,
+                                                    gen=gen, flush=flush)
+            del eng
+        (out, dt, ttft, got, graphs), plain = runs["kernel"], runs["plain"]
+        for a, b_ in zip(out, plain[0]):
+            assert np.array_equal(a, b_), f"phi-3 {loop}: kernel and plain tokens differ"
+        assert sum(plain[3].values()) == 0, f"phi-3 {loop}: the plain path launched a kernel"
+        assert got[kernel] > 0, (loop, got)
+        add(got)
+        first = out if first is None else first
+        n_tok = sum(map(len, out))
+        report.append(f"{loop}: tokens identical kernel = plain, against the contiguous loop's "
+                      f"{_agreement(out, first)}; {n_tok / dt:.1f} tok/s (plain "
+                      f"{n_tok / plain[1]:.1f}), mean TTFT {ttft * 1e3:.1f} ms (plain "
+                      f"{plain[2] * 1e3:.1f}), {graphs} graphs captured; launches {got}")
+    cache = init_decode_cache(4, 256, cfg, device=dev)
+    tok4 = torch.zeros(4, dtype=torch.long, device=dev)
+    at = torch.full((4,), 150, dtype=torch.long, device=dev)
+    steps, captured = StepGraphs(dev, graphs=True), {}
+    bd = _breakdown("captured decode step B4 pos150",
+                    lambda: steps.run(captured, "decode",
+                                      lambda: decode_step_lm(params, cache, tok4, at, cfg)),
+                    watch=("decode_kernel",))
+    del steps, captured, cache, params
+    peak = torch.cuda.max_memory_allocated()
+    for kernel, (_, _, row) in direct.items():
+        rows[kernel] = {f"phi3_d96_{key}": val for key, val in row.items()}
+    text = (f"phi-3-vision-4.2b f32 full width (d {cfg.d_model}, Hq = Hkv = {cfg.n_heads}, head dim "
+            f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), on {card}: {attn_text}; "
+            f"{train_text}; {cfg.n_layers} layers, {param_bytes / 1e9:.2f} GB of parameters, peak "
+            f"{peak / 1e9:.2f} GB allocated: forward B1 x ({cfg.frontend_tokens} patch rows + "
+            f"{PHI3_SEQ - cfg.frontend_tokens} tokens) kernel {fwd['kernel'][1]:.2f} s, plain "
+            f"{fwd['plain'][1]:.2f} s, last position max|Δlogit| {logit_err:.2e} (bound "
+            f"{LOGIT_TOL}); serving {len(reqs)} text requests (prompts {[len(r) for r in reqs]}, "
+            f"{n_new} new, max_batch 4, max_len 256, captured): {'; '.join(report)}; "
+            + "; ".join(d_[1] for d_ in direct.values()) + f"; {bd}")
+    return text, launched, rows
+
+
+def _mamba2_phase(dev, card: str):
+    """Phase 19, mamba2-2.7b at full width and depth (64 `ssm` layers, d
+    2560, 80 heads of 64, state 128, chunk 64, vocab 50280), f32, seeded
+    random weights; it runs no FLASH-D kernel (attention-free):
+
+      * the chunked forward (B 2 x S MAMBA2_SEQ) against the step-by-step
+        decode chain from a zeroed cache (each step a captured graph
+        replay): the last position's logits within LOGIT_TOL;
+      * 6 requests on 4 slots (prompts 16–40, 16 new, max_len 128) through
+        the contiguous loop captured and eager: tokens, host syncs equal; a
+        paged engine serves them on the contiguous loop (no pool), the
+        same tokens, and a mixed one takes no packed step; no kernel
+        launched; a captured decode step's breakdown.
+
+    Returns the report."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fa2_fwd as k6
+    from repro_torch.kernels import flashd_bwd as k5
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_fwd as k1
+    from repro_torch.kernels import flashd_varlen as k4
+    from repro_torch.models.transformer import (
+        apply_lm,
+        decode_hidden_lm,
+        decode_step_lm,
+        init_decode_cache,
+        init_lm,
+        logits_lm,
+    )
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.graphs import StepGraphs
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"), dtype="float32")
+    counts = lambda: (k1.launches, k2.launches, k2.paged_launches, k4.launches, k5.launches,
+                      k6.launches)
+    before = counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, device=dev, seed=0)
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    rng = np.random.default_rng(20)
+    b, s, v = 2, MAMBA2_SEQ, cfg.vocab_size
+    toks = torch.as_tensor(rng.integers(0, v, (b, s)), device=dev)
+    with torch.inference_mode():
+        t = time.perf_counter()
+        full = apply_lm(params, {"tokens": toks}, cfg, last_only=True)[0][:, -1, :v]
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t
+        cache = init_decode_cache(b, s, cfg, device=dev)
+        tok, pos = (torch.zeros(b, dtype=torch.long, device=dev) for _ in range(2))
+        h = torch.zeros(b, 1, cfg.d_model, device=dev)
+        steps, captured = StepGraphs(dev, graphs=True), {}
+        step = lambda: h.copy_(decode_hidden_lm(params, cache, tok, pos, cfg))
+        t = time.perf_counter()
+        for i in range(s):
+            tok.copy_(toks[:, i])
+            pos.fill_(i)
+            steps.run(captured, "step", step)
+        chain = logits_lm(params, h, cfg)[:, :v]
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t
+        del steps, captured, cache
+    err = _err(full, chain)
+    assert torch.isfinite(chain).all() and err <= LOGIT_TOL, ("mamba2 chunked vs chain", err)
+
+    reqs = [rng.integers(0, v, (int(n),)).astype(np.int32) for n in (16, 24, 32, 40, 20, 28)]
+    n_new, runs = 16, {}
+    for name, graphs, kw in (("captured", None, {}), ("eager", False, {}),
+                             ("paged", None, dict(kv_layout="paged"))):
+        eng = Engine(params, cfg, ServeConfig(max_batch=4, max_len=128, **kw), device=dev,
+                     graphs=graphs)
+        t = time.perf_counter()
+        out = eng.serve(reqs, n_new)
+        torch.cuda.synchronize()
+        runs[name] = (out, time.perf_counter() - t, eng._steps.captures, eng.host_syncs)
+        assert eng._page_layout is None and eng._alloc is None, (name, "took a pool")
+        del eng
+    mixed = Engine(params, cfg, ServeConfig(max_batch=4, max_len=128, step_mode="mixed"),
+                   device=dev)
+    assert mixed._page_layout is None and not mixed._mixed_ok and not mixed._cache_on
+    del mixed
+    out = runs["captured"][0]
+    for name in ("eager", "paged"):
+        for a, b_ in zip(out, runs[name][0]):
+            assert np.array_equal(a, b_), f"mamba2: captured and {name} tokens differ"
+    assert runs["captured"][3] == runs["eager"][3] and runs["eager"][2] == 0 < runs["captured"][2]
+    assert counts() == before, "mamba2 launched a FLASH-D kernel"
+    cache = init_decode_cache(4, 128, cfg, device=dev)
+    tok4 = torch.zeros(4, dtype=torch.long, device=dev)
+    at = torch.full((4,), 60, dtype=torch.long, device=dev)
+    steps, captured = StepGraphs(dev, graphs=True), {}
+    bd = _breakdown("captured decode step B4",
+                    lambda: steps.run(captured, "decode",
+                                      lambda: decode_step_lm(params, cache, tok4, at, cfg)))
+    del steps, captured, cache, params
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(map(len, out))
+    rate = lambda name: f"{n_tok / runs[name][1]:.1f} tok/s"
+    return (f"mamba2-2.7b f32 full width and depth ({cfg.n_layers} ssm layers, d {cfg.d_model}, "
+            f"{cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+            f"{cfg.ssm_chunk}, vocab {v}), {param_bytes / 1e9:.2f} GB of parameters, peak "
+            f"{peak / 1e9:.2f} GB allocated, on {card}: chunked forward B{b} S{s} {fwd_s:.2f} s "
+            f"against the decode chain ({s} captured steps, {chain_s:.2f} s): last position "
+            f"max|Δlogit| {err:.2e} (bound {LOGIT_TOL}); serving {len(reqs)} requests (prompts "
+            f"{[len(r) for r in reqs]}, {n_new} new, max_batch 4, max_len 128): tokens identical "
+            f"captured = eager = a paged engine on the contiguous loop (no pool; a mixed engine "
+            f"takes no packed step), host syncs {runs['captured'][3]} = {runs['eager'][3]}, "
+            f"captured {rate('captured')} ({runs['captured'][2]} graphs), eager {rate('eager')}, "
+            f"paged {rate('paged')}; no FLASH-D kernel launched; {bd}")
 
 
 def main() -> int:
@@ -954,12 +1495,14 @@ def main() -> int:
     secs = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(f"{n}: " + _build.ptxas_report(n).replace("\n", " | ") for n in _build.SOURCES)
+    ptxas_96 = "; ".join(f"{n}: {_ptxas_hd(n, 'Li96E')}" for n in _build.SOURCES)
     cuobjdump = _cuobjdump(_build.nvcc())
     sass = _sass_counts(cuobjdump, {n: str(_build.lib_path(n)) for n in _build.SOURCES})
     for n in TC_KERNELS:
         assert sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, ("no tensor-core instruction", n, sass[n])
     _line(2, f"built {sorted(secs)} in {build_s:.1f} s (per source {secs}); SASS instruction "
-             f"counts (cuobjdump -sass) {sass}; ptxas: {ptxas} {ph}")
+             f"counts (cuobjdump -sass) {sass}; head dim 96 (ptxas): {ptxas_96}; ptxas: {ptxas} "
+             f"{ph}")
 
     # ---- 3. K1 against its plain version ----
     ph = _Phase()
@@ -2147,6 +2690,15 @@ def main() -> int:
     a12_text, a12_launches, a12_k1, a12_err = _a12_phase(dev, card, flush)
     _line(18, f"{a12_text} {ph}")
 
+    # ---- 19. phi-3-vision (head dim 96 in K1–K6) and mamba2 at full width ----
+    ph = _Phase()
+    gc.collect()
+    phi3_text, phi3_launches, phi3_rows = _phi3_phase(dev, card, flush)
+    _line(19, f"{phi3_text} {ph}")
+    ph = _Phase()
+    gc.collect()
+    _line(19, f"{_mamba2_phase(dev, card)} {ph}")
+
     # ---- 14. kernels line, result line ----
     kernels = [
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
@@ -2239,6 +2791,11 @@ def main() -> int:
     kernels[0].update({f"llama4_{key}": val for key, val in a12_k1.items()})
     for row in kernels[1:3]:
         row["llama4_max_abs_err"] = a12_err[row["name"]]
+    # phase 19: phi-3-vision's main path at head dim 96 (forward, train step,
+    # the three serving loops) and each kernel at its shapes
+    for row in kernels:
+        row["phi3_launches"] = phi3_launches[row["name"]]
+        row.update(phi3_rows[row["name"]])
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}; all phases "
               f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

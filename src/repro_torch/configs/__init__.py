@@ -1,7 +1,7 @@
 """Config registry: --arch <id> resolves here. The port carries copies of
 the reference's config data for the architectures it runs (dense GQA, MoE
-with chunked attention, RG-LRU with local attention); the SSM, vision and
-encoder-decoder ones raise "not ported" (A12)."""
+with chunked attention, RG-LRU with local attention, the Mamba-2 SSM, the
+vision stub); the encoder-decoder one raises "not ported" (A12)."""
 
 from __future__ import annotations
 
@@ -17,10 +17,12 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
     "paper-llama": "paper_llama",
 }
-# the reference's other architectures, queued for A12 (steps d-f)
-_NOT_PORTED = ("mamba2-2.7b", "phi-3-vision-4.2b", "seamless-m4t-medium")
+# the reference's other architecture, queued for A12 (step f)
+_NOT_PORTED = ("seamless-m4t-medium",)
 
 
 def _module(name: str):

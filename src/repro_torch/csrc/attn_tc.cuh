@@ -23,7 +23,7 @@
 // live tile's copy is in flight while the current one computes. Q is copied
 // once per CTA. Rows are padded by 16 bytes in shared memory, which keeps
 // ldmatrix (bf16) and the 32-bit fragment reads (f32) free of bank
-// conflicts for every head dim (16, 32, 48, 64, 128). Rows past Sq / Skv are
+// conflicts for every head dim (16, 32, 48, 64, 96, 128). Rows past Sq / Skv are
 // zero-filled by the copy (src-size 0).
 //
 // Products (mma.sync, f32 accumulation):

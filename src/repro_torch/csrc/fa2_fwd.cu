@@ -64,6 +64,7 @@ cudaError_t dispatch_hd(int hd, const tc::Args& a, cudaStream_t stream) {
     case 32: return tc::launch<T, 32>(fa2_fwd_kernel<T, 32>, a, stream);
     case 48: return tc::launch<T, 48>(fa2_fwd_kernel<T, 48>, a, stream);
     case 64: return tc::launch<T, 64>(fa2_fwd_kernel<T, 64>, a, stream);
+    case 96: return tc::launch<T, 96>(fa2_fwd_kernel<T, 96>, a, stream);
     case 128: return tc::launch<T, 128>(fa2_fwd_kernel<T, 128>, a, stream);
     default: return cudaErrorInvalidValue;
   }

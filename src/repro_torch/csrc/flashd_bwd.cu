@@ -466,6 +466,7 @@ cudaError_t dispatch_hd(int hd, const BwdArgs& a, cudaStream_t stream) {
     case 32: return launch<T, 32>(a, stream);
     case 48: return launch<T, 48>(a, stream);
     case 64: return launch<T, 64>(a, stream);
+    case 96: return launch<T, 96>(a, stream);
     case 128: return launch<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -242,6 +242,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, cudaStream_t stream) {
     case 32: return dispatch_group<TQ, TKV, 32, PAGED>(a, stream);
     case 48: return dispatch_group<TQ, TKV, 48, PAGED>(a, stream);
     case 64: return dispatch_group<TQ, TKV, 64, PAGED>(a, stream);
+    case 96: return dispatch_group<TQ, TKV, 96, PAGED>(a, stream);
     case 128: return dispatch_group<TQ, TKV, 128, PAGED>(a, stream);
     default: return cudaErrorInvalidValue;
   }

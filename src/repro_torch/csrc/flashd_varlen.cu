@@ -549,6 +549,7 @@ cudaError_t dispatch_hd(int hd, const Args& a, int nbr, cudaStream_t stream) {
     case 32: return launch<TQ, TKV, 32>(a, nbr, stream);
     case 48: return launch<TQ, TKV, 48>(a, nbr, stream);
     case 64: return launch<TQ, TKV, 64>(a, nbr, stream);
+    case 96: return launch<TQ, TKV, 96>(a, nbr, stream);
     case 128: return launch<TQ, TKV, 128>(a, nbr, stream);
     default: return cudaErrorInvalidValue;
   }

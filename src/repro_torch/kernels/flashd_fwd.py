@@ -55,7 +55,7 @@ __all__ = [
 
 KERNEL_BLOCK_Q = 64  # q rows per CTA (tc::BQ in csrc/attn_tc.cuh)
 KERNEL_BLOCK_K = 64  # default and largest kv tile (tc::BKP)
-HEAD_DIMS = (16, 32, 48, 64, 128)
+HEAD_DIMS = (16, 32, 48, 64, 96, 128)
 _MASK_KINDS = {"full": 0, "causal": 1, "local": 2, "chunked": 3}
 
 launches = 0

@@ -17,7 +17,7 @@ class ModelApi(NamedTuple):
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    _tf.check_ported(cfg)  # SSM mixers, encoder-decoder stacks, frontends: A12
+    _tf.check_ported(cfg)  # encoder-decoder stacks, the audio frontend: A12 f
     return ModelApi(
         init=_tf.init_lm,
         apply=_tf.apply_lm,

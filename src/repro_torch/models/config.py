@@ -14,9 +14,10 @@ parameters stacked per pattern position. Mixers:
   ssm           Mamba-2 SSD block (attention-free)
   rglru         Griffin RG-LRU recurrent block
 
-FFNs: swiglu | moe | none. The port runs every mixer but `ssm` (and no
-encoder-decoder stack or frontend); those raise "not ported" in
-`models/transformer.py` (A12).
+FFNs: swiglu | moe | none. The port runs every mixer but `attn_bidir`,
+and the vision frontend's stub; encoder-decoder stacks (`attn_bidir`,
+cross attention) and the audio frontend raise "not ported" in
+`models/transformer.py` (A12 f).
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Decoder LM — the port of `repro/models/transformer.py` for every
 decoder-only attention family of the reference: mixers `attn`,
 `attn_nope`, `attn_local` (sliding window), `attn_chunked` (causal within
-chunks) and `rglru` (`models/rglru.py`); FFNs `swiglu`, `moe`
-(`models/moe.py`) and `none`. SSM mixers, encoder-decoder stacks and
-modality frontends raise "not ported" (queue item A12).
+chunks), `rglru` (`models/rglru.py`) and `ssm` (Mamba-2, `models/mamba2.py`);
+FFNs `swiglu`, `moe` (`models/moe.py`) and `none`; the vision frontend's
+stub (precomputed patch embeddings through `patch_proj`, prepended to the
+tokens). Encoder-decoder stacks and the audio frontend raise "not ported"
+(queue item A12 f).
 
 Parameters are the reference's tree, a plain dict of tensors: `embed`,
 `final_norm`, `lm_head`, and `blocks/pos{j}/...` (and `rem_blocks/pos{j}`
@@ -23,7 +25,9 @@ layers keep a ring of min(max_len, window | chunk) slots, contiguous in
 either layout: position p sits at slot p mod len, and decode reads the
 first min(p + 1, len) slots (local) or p mod len + 1 (chunked) with no
 window or chunk passed to the kernel — slot order is not position order.
-RG-LRU layers keep lru_state [L, B, W] and conv_cache [L, B, K − 1, W].
+RG-LRU layers keep lru_state [L, B, W] and conv_cache [L, B, K − 1, W];
+Mamba-2 layers ssm_state [L, B, H, P, N] f32 and conv_cache [L, B, K − 1,
+d_inner + 2N].
 
 Caches are updated IN PLACE (`index_put` into the stacked tensors), where
 the reference rebuilt them functionally, so decode and `forward_packed`
@@ -50,6 +54,7 @@ from repro_torch.core.attention import (
     varlen_attention,
 )
 from repro_torch.devices import resolve_device
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
 from repro_torch.models.config import ModelConfig
@@ -80,16 +85,17 @@ __all__ = [
 
 _AUX_KEYS = moe_mod.AUX_KEYS
 _RING_MIXERS = ("attn_local", "attn_chunked")
-_PORTED_MIXERS = ("attn", "attn_nope", *_RING_MIXERS, "rglru")
+_STATE_MIXERS = ("rglru", "ssm")  # recurrent state: O(1) a sequence, advanced in place
+_PORTED_MIXERS = ("attn", "attn_nope", *_RING_MIXERS, *_STATE_MIXERS)
 _PORTED_FFNS = ("swiglu", "moe", "none")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for any part of `cfg` the port does not run."""
     if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models not ported (A12)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend not ported (A12)")
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models not ported (A12 f)")
+    if cfg.frontend not in ("none", "vision"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend not ported (A12 f)")
     for mixer, ffn in (*cfg.pattern, *cfg.remainder):
         if mixer not in _PORTED_MIXERS or ffn not in _PORTED_FFNS:
             raise NotImplementedError(
@@ -131,11 +137,14 @@ def _init_swiglu(gen: torch.Generator, cfg: ModelConfig) -> dict:
     }
 
 
+_MIXER_INIT = {"rglru": rg.init_rglru, "ssm": m2.init_mamba2}
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig, spec) -> dict:
     mixer, ffn = spec
     d, dt, dev = cfg.d_model, cfg.master_dtype, gen.device
     p = {"norm1": torch.zeros((d,), dtype=dt, device=dev),
-         "mixer": rg.init_rglru(gen, cfg) if mixer == "rglru" else _init_attn(gen, cfg)}
+         "mixer": _MIXER_INIT.get(mixer, _init_attn)(gen, cfg)}
     if ffn != "none":
         p["norm2"] = torch.zeros((d,), dtype=dt, device=dev)
         p["ffn"] = moe_mod.init_moe(gen, cfg) if ffn == "moe" else _init_swiglu(gen, cfg)
@@ -167,6 +176,8 @@ def init_lm(cfg: ModelConfig, *, device=None, seed: int = 0,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dtype=dt)
+    if cfg.frontend == "vision":
+        params["patch_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model), dtype=dt)
     for key, pattern in _groups(cfg):
         n = cfg.n_blocks if key == "blocks" else 1
         params[key] = _stack([
@@ -262,8 +273,12 @@ def _apply_block(bp: dict, h, cfg: ModelConfig, spec, positions):
     None), as `_apply_ffn`."""
     mixer, ffn = spec
     x = rms_norm(h, bp["norm1"], cfg.norm_eps)
-    y = rg.apply_rglru(bp["mixer"], x, cfg) if mixer == "rglru" else \
-        _apply_attn(bp["mixer"], x, cfg, mixer, positions)
+    if mixer == "rglru":
+        y = rg.apply_rglru(bp["mixer"], x, cfg)
+    elif mixer == "ssm":
+        y = m2.apply_mamba2(bp["mixer"], x, cfg)
+    else:
+        y = _apply_attn(bp["mixer"], x, cfg, mixer, positions)
     return _apply_ffn(bp, h + y, cfg, ffn)
 
 
@@ -302,14 +317,26 @@ def _remat(fn, cfg: ModelConfig):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
+def _embed_inputs(params: dict, batch: Dict, cfg: ModelConfig):
+    """Token embedding, with the vision stub's patch rows first when the
+    batch holds `patch_embeds` [B, P, D]: projected by `patch_proj` in the
+    compute dtype and prepended (the reference's `_embed_inputs`)."""
+    cdt = cfg.compute_dtype
+    h = embed_lookup(params["embed"], batch["tokens"], cdt)
+    if cfg.frontend == "vision" and "patch_embeds" in batch:
+        patches = torch.matmul(batch["patch_embeds"].to(cdt), params["patch_proj"].to(cdt))
+        h = torch.cat([patches, h], dim=1)
+    return h
+
+
 def forward_hidden(params: dict, batch: Dict, cfg: ModelConfig):
     """The stack without the LM head → (final-normed hidden [B, S, D], aux
     dict of f32 scalars: each MoE value summed over the layers of a group
     from zero, then over the groups, as the reference's scans sum them).
+    S counts a vision batch's patch rows; positions run over all of it.
     Under autograd each block is rematerialized as `cfg.remat` says."""
     check_ported(cfg)
-    tokens = batch["tokens"]
-    h = embed_lookup(params["embed"], tokens, cfg.compute_dtype)
+    h = _embed_inputs(params, batch, cfg)
     positions = torch.arange(h.shape[1], device=h.device)
     block = _remat(_apply_block, cfg)
     aux = torch.zeros((len(_AUX_KEYS),), dtype=torch.float32, device=h.device)
@@ -338,9 +365,13 @@ def apply_lm(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool = F
 
 def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
     """Causal-LM cross entropy + the MoE aux and z losses → (loss, metrics:
-    ce and the three aux values); labels == −1 are masked. Differentiable."""
+    ce and the three aux values); labels == −1 are masked; the logits of a
+    modality prefix (the vision stub's patch rows) are dropped first.
+    Differentiable."""
     logits, aux = apply_lm(params, batch, cfg)
     labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0)
     lse = torch.logsumexp(logits, dim=-1)
@@ -357,7 +388,9 @@ def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
 def paged_mixers(cfg: ModelConfig):
     """Mixer kinds that take the paged layout: full-length (global)
     attention caches only. Local and chunked layers keep their ring (the
-    dense packing of what the layer can see), RG-LRU its O(1) state."""
+    dense packing of what the layer can see), RG-LRU and Mamba-2 their O(1)
+    state. A stack with none (mamba2) takes no pool: its engine serves on
+    the contiguous loop, as the reference's does."""
     return tuple(
         m for m, _ in (*cfg.pattern, *cfg.remainder)
         if m.startswith("attn") and m not in _RING_MIXERS
@@ -393,7 +426,8 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
     Attention layers: {'k', 'v'} [n, batch, S, Hkv, hd] with S = max_len for
     global layers and the ring length (`_ring_len`) for local / chunked
     ones. RG-LRU layers: {'lru_state' [n, batch, W] f32, 'conv_cache' [n,
-    batch, K − 1, W]}.
+    batch, K − 1, W]}; Mamba-2 layers: {'ssm_state' [n, batch, H, P, N] f32,
+    'conv_cache' [n, batch, K − 1, d_inner + 2N]}.
 
     layout="paged" gives each GLOBAL attention layer {'k_pages', 'v_pages'}
     [n, P, page, Hkv, hd] and 'tbl' [n, batch, N] int32 (N = ⌈max_len /
@@ -434,6 +468,8 @@ def init_decode_cache(batch: int, max_len: int, cfg: ModelConfig, *,
         dt = cfg.compute_dtype
         if mixer == "rglru":
             return rg.init_rglru_cache(batch, cfg, dt, n=n, device=dev)
+        if mixer == "ssm":
+            return m2.init_mamba2_cache(batch, cfg, dt, n=n, device=dev)
         if geom is None or mixer in _RING_MIXERS:
             shape = (n, batch, _ring_len(cfg, mixer, max_len), cfg.n_kv_heads, cfg.head_dim_)
             return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -483,15 +519,15 @@ def rows_interact(cfg: ModelConfig) -> bool:
 
 def undo_leaves(cache: dict, cfg: ModelConfig) -> list:
     """The cache tensors a serving step overwrites where a re-run of the
-    step would not rewrite them first: ring K/V and RG-LRU state (a ring
-    slot may be overwritten by a later position of the same chunk before
-    an earlier one reads it; a recurrence applied twice is wrong). On an
-    MoE stack rows interact (capacity is shared by every row of a step,
-    dead slots and padding rows included), so the garbage that dead slots
-    read must be the reference's too: every per-batch leaf and page 0 of
-    each pool (views) join the list. The engine copies them aside before a
-    step and back after a faulted one — the reference discards the whole
-    new cache."""
+    step would not rewrite them first: ring K/V and RG-LRU and Mamba-2
+    state (a ring slot may be overwritten by a later position of the same
+    chunk before an earlier one reads it; a recurrence applied twice is
+    wrong). On an MoE stack rows interact (capacity is shared by every row
+    of a step, dead slots and padding rows included), so the garbage that
+    dead slots read must be the reference's too: every per-batch leaf and
+    page 0 of each pool (views) join the list. The engine copies them aside
+    before a step and back after a faulted one — the reference discards
+    the whole new cache."""
     moe = rows_interact(cfg)
     out = []
     for key, pattern in _groups(cfg):
@@ -501,7 +537,7 @@ def undo_leaves(cache: dict, cfg: ModelConfig) -> list:
                 if name in POOL_LEAVES:
                     if moe:
                         out.append(leaf[:, 0])
-                elif name != "tbl" and (moe or mixer in _RING_MIXERS or mixer == "rglru"):
+                elif name != "tbl" and (moe or mixer in _RING_MIXERS or mixer in _STATE_MIXERS):
                     out.append(leaf)
     return out
 
@@ -612,6 +648,8 @@ def _decode_block(bp, h, cfg: ModelConfig, spec, cache, pos):
     x = rms_norm(h, bp["norm1"], cfg.norm_eps)
     if mixer == "rglru":
         h = h + rg.decode_rglru(bp["mixer"], x, cache, cfg)
+    elif mixer == "ssm":
+        h = h + m2.decode_mamba2(bp["mixer"], x, cache, cfg)
     else:
         h = h + _decode_attn(bp["mixer"], x, cfg, mixer, cache, pos)
     return _apply_ffn(bp, h, cfg, ffn)[0]
@@ -671,9 +709,10 @@ def prefill_lm(params: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig
 
     lengths [B] (each row's real token count ≤ s): past its length a row
     still steps (it feeds an MoE router like any other row), and then its
-    per-batch leaves — contiguous and ring K/V, RG-LRU state — go back to
-    what they held before the step (the reference's `_freeze_dead_rows`;
-    pool leaves keep the writes, which land past the row's length). Its
+    per-batch leaves — contiguous and ring K/V, RG-LRU and Mamba-2 state —
+    go back to what they held before the step (the reference's
+    `_freeze_dead_rows`; pool leaves keep the writes, which land past the
+    row's length). Its
     logits are those of position lengths − 1: the hidden state is captured
     there and the LM head runs once at the end, which gives the logits the
     reference computes per step."""

@@ -1,9 +1,11 @@
-"""Port parity for the reference's dense-GQA, MoE + chunked-attention and
-RG-LRU + local-attention configs (deepseek-7b, qwen2-1.5b, yi-34b,
-llama4-scout-17b-a16e, qwen3-moe-235b-a22b, recurrentgemma-9b) at smoke
-width, f32, on the reference's weights (`init_lm(PRNGKey(0))` through the
-bridge): the config data, the forward pass, and prefill and decode through
-contiguous, ring, recurrent and paged caches. One train step is held to the
+"""Port parity for the reference's dense-GQA, MoE + chunked-attention,
+RG-LRU + local-attention, Mamba-2 and vision-stub configs (deepseek-7b,
+qwen2-1.5b, yi-34b, llama4-scout-17b-a16e, qwen3-moe-235b-a22b,
+recurrentgemma-9b, mamba2-2.7b, phi-3-vision-4.2b) at smoke width, f32, on
+the reference's weights (`init_lm(PRNGKey(0))` through the bridge): the
+config data, the forward pass (text only; phi-3's patch rows in
+`test_torch_phi3v.py`), and prefill and decode through contiguous, ring,
+recurrent and paged caches. One train step is held to the
 reference's in `test_torch_archs_train.py`, the serving engines in
 `test_torch_archs_serve.py`.
 
@@ -28,7 +30,7 @@ from repro_torch.models import get_model
 from repro_torch.models import transformer as ttf
 
 ARCHS = ("deepseek-7b", "qwen2-1.5b", "yi-34b", "llama4-scout-17b-a16e",
-         "qwen3-moe-235b-a22b", "recurrentgemma-9b")
+         "qwen3-moe-235b-a22b", "recurrentgemma-9b", "mamba2-2.7b", "phi-3-vision-4.2b")
 LOGIT_TOL = 1e-4
 AUX_TOL = 1e-6
 
@@ -82,9 +84,17 @@ def test_configs_are_the_reference_data(arch):
 
 
 def test_the_other_archs_still_raise():
-    for arch in ("mamba2-2.7b", "phi-3-vision-4.2b", "seamless-m4t-medium"):
+    """What is still refused: the encoder-decoder config, and in
+    `check_ported` an audio frontend and an encoder-decoder stack."""
+    for arch in ("seamless-m4t-medium",):
         with pytest.raises(NotImplementedError, match="A12"):
             get_smoke_config(arch)
+    seamless = bridge.config_from_reference(j_get_smoke_config("seamless-m4t-medium"))
+    text = get_smoke_config("qwen3-0.6b")
+    for cfg in (seamless, dataclasses.replace(text, frontend="audio"),
+                dataclasses.replace(text, n_encoder_layers=2)):
+        with pytest.raises(NotImplementedError, match="A12"):
+            get_model(cfg)
 
 
 def test_forward_logits_and_aux_match_reference(model):

@@ -1,13 +1,14 @@
 """Port parity: the serving engine on the reference's dense-GQA configs
-(deepseek-7b, qwen2-1.5b, yi-34b) at smoke width, f32, on the reference's
-weights, against the reference `Engine` (attn_impl 'flashd'): greedy
-tokens identical on every loop the reference runs for the config, and
-`generate`. The helpers here serve the MoE configs (`test_torch_moe*.py`)
-and recurrentgemma (`test_torch_rglru.py`) too, chaos parity included: contiguous for all, paged
-where a global-attention layer takes the pool (llama4's NoPE layer beside
-its chunked rings), mixed where every mixer is global attention. A stack a
-loop does not take falls back as the reference's does; the routing itself
-is compared config by config.
+(deepseek-7b, qwen2-1.5b, yi-34b; phi-3-vision-4.2b, text only) at smoke
+width, f32, on the reference's weights, against the reference `Engine`
+(attn_impl 'flashd'): greedy tokens identical on every loop the reference
+runs for the config, and `generate`. The helpers here serve the MoE
+configs (`test_torch_moe*.py`), recurrentgemma (`test_torch_rglru.py`)
+and mamba2 (`test_torch_mamba2.py`) too, chaos parity included:
+contiguous for all, paged where a global-attention layer takes the pool
+(llama4's NoPE layer beside its chunked rings), mixed where every mixer is
+global attention. A stack a loop does not take falls back as the
+reference's does; the routing itself is compared config by config.
 
 MoE capacity is shared by every row of a step, so a dead slot's rows and a
 pack's padding rows steer which tokens are dropped: equal tokens on the
@@ -30,7 +31,7 @@ from repro.serve import ServeConfig as JServeConfig
 from repro_torch import bridge
 from repro_torch.serve import Engine, FaultInjector, ServeConfig
 
-ARCHS = ("deepseek-7b", "qwen2-1.5b", "yi-34b")
+ARCHS = ("deepseek-7b", "qwen2-1.5b", "yi-34b", "phi-3-vision-4.2b")
 LOOPS = {"contiguous": {}, "paged": dict(kv_layout="paged"), "mixed": dict(step_mode="mixed")}
 
 

@@ -1,7 +1,8 @@
 """Port parity: one train step of the reference's dense-GQA, MoE +
-chunked-attention and RG-LRU + local-attention configs (deepseek-7b,
-qwen2-1.5b, yi-34b, llama4-scout-17b-a16e, qwen3-moe-235b-a22b,
-recurrentgemma-9b) at smoke width, f32, on the reference's weights and
+chunked-attention, RG-LRU + local-attention, Mamba-2 and vision-stub
+configs (deepseek-7b, qwen2-1.5b, yi-34b, llama4-scout-17b-a16e,
+qwen3-moe-235b-a22b, recurrentgemma-9b, mamba2-2.7b, phi-3-vision-4.2b;
+text batches: phi-3's patch rows in `test_torch_phi3v.py`) at smoke width, f32, on the reference's weights and
 the same `SyntheticLM` batch: the loss (ce + the MoE aux and z losses), ce
 and the grad norm within 1e-4 relative (summation order only; the
 gradients of the MoE router pass through a discrete top-k, which both
@@ -27,7 +28,7 @@ from repro_torch.optim import adamw as tadamw
 from repro_torch.train import train_step as tts
 
 ARCHS = ("deepseek-7b", "qwen2-1.5b", "yi-34b", "llama4-scout-17b-a16e",
-         "qwen3-moe-235b-a22b", "recurrentgemma-9b")
+         "qwen3-moe-235b-a22b", "recurrentgemma-9b", "mamba2-2.7b", "phi-3-vision-4.2b")
 REL = 1e-4
 AUX_TOL = 1e-6
 

@@ -77,7 +77,7 @@ FWD_CASES = [
 
 
 @pytest.mark.parametrize("case", FWD_CASES)
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128])
 def test_fwd_kernel_matches_plain(cuda, case, d):
     kind, window, chunk, q_offset, skip = case
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -157,7 +157,7 @@ def test_bwd_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128])
 def test_bwd_kernel_head_dims(cuda, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(d)
     m = tb.MaskSpec("causal")
@@ -244,13 +244,14 @@ def test_fa2_kernel_matches_plain_and_k1(cuda, case):
 TC_FWD = [(k1.flashd_fwd, k1.flashd_fwd_plain), (k6.fa2_fwd, k6.fa2_fwd_plain)]
 
 
+@pytest.mark.parametrize("d", [16, 96])
 @pytest.mark.parametrize("case", FWD_CASES)
-def test_fa2_kernel_at_head_dim_16(cuda, case):
-    """K6 at head dim 16 (every A12 smoke config's), f32 and bf16, against
-    its plain version and K1."""
+def test_fa2_kernel_at_head_dims_16_and_96(cuda, case, d):
+    """K6 at head dim 16 (every A12 smoke config's) and 96 (phi-3-vision's
+    at full width), f32 and bf16, against its plain version and K1."""
     kind, window, chunk, q_offset, _ = case
-    gen = torch.Generator(device=cuda).manual_seed(16)
-    args = tuple(torch.randn(2, s_, h, 16, generator=gen, device=cuda).transpose(1, 2)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    args = tuple(torch.randn(2, s_, h, d, generator=gen, device=cuda).transpose(1, 2)
                  for s_, h in ((150, 4), (170, 2), (170, 2)))
     m = tb.MaskSpec(kind, window, chunk, q_offset)
     o, lam = k6.fa2_fwd(*args, mask=m)
@@ -422,7 +423,7 @@ def test_decode_kernel_matches_plain(cuda, case, group):
     _close(ob, ob_p, BF16_TOL)
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96])
 def test_decode_kernel_head_dims(cuda, d):
     gen = torch.Generator(device=cuda).manual_seed(d)
     q = torch.randn(3, 4, d, generator=gen, device=cuda)
@@ -500,7 +501,7 @@ def test_decode_wrapper_refuses_unaligned_views(cuda):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    q = torch.randn(1, 2, 8, 96, device=cuda)
+    q = torch.randn(1, 2, 8, 80, device=cuda)  # a head dim no kernel builds
     with pytest.raises(ValueError, match="head dim"):
         k1.flashd_fwd(q, q, q)
     q = torch.randn(1, 2, 8, 64, device=cuda, dtype=torch.float16)
@@ -712,20 +713,23 @@ def test_paged_decode_kernel_pages_and_groups(cuda, page, group):
                tol)
 
 
+@pytest.mark.parametrize("d", [16, 96])
 @pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "fp8"])
 @pytest.mark.parametrize("group", [1, 2, 4])
 @pytest.mark.parametrize("page", [4, 16, 64])
-def test_paged_kernels_at_head_dim_16(cuda, page, group, pool):
+def test_paged_kernels_at_head_dims_16_and_96(cuda, page, group, pool, d):
     """K3 and K4 at head dim 16, where a byte-pool row is one 16-byte copy
-    and a bf16 q row two (lanes past them idle): f32 and bf16 pools with q
+    and a bf16 q row two (lanes past them idle), and at 96 (phi-3-vision's
+    at full width: a byte-pool row is six copies, an f32 q row 24 chunks on
+    a row of 32 lanes, a bf16 one 12 on 16): f32 and bf16 pools with q
     of their dtype, int8 and fp8 pools with f32 and bf16 q; K4 on a pack
     with decode rows, a verify chain (the CUDA-core body) and a prompt and a
     chunk (the tensor cores), under the causal, local and chunked masks.
     A byte pool's values reach |O| ≈ 7 here, so bf16 outputs are held to
     2^-7·max|O| — between one and two bf16 ulps of the largest |O| — or
     BF16_TOL if larger."""
-    gen = torch.Generator(device=cuda).manual_seed(page * 10 + group)
-    hkv, d, n_tbl = 2, 16, 160 // page
+    gen = torch.Generator(device=cuda).manual_seed(page * 10 + group + d)
+    hkv, n_tbl = 2, 160 // page
     full = n_tbl * page
     lengths = [0, 1, page + 1, full - 3, full]
     byte = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(pool)
@@ -962,14 +966,16 @@ A12_LOOPS = {
 
 @pytest.mark.parametrize("loop", sorted(A12_LOOPS))
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "qwen3-moe-235b-a22b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "mamba2-2.7b", "phi-3-vision-4.2b"])
 def test_a12_engines_captured_eager_and_plain_agree(cuda, arch, loop):
-    """The MoE + chunked-attention, MoE and RG-LRU + local-attention stacks
-    at smoke width (head dim 16), f32: on each loop (a stack the loop does
-    not take falls back as the reference's engine does) the captured steps
-    give the eager steps' tokens, launch counts and host syncs, and the
-    plain route's tokens; K1 runs the forward under the stack's masks and
-    agrees with the plain route's logits."""
+    """The MoE + chunked-attention, MoE, RG-LRU + local-attention, Mamba-2
+    and vision-stub stacks at smoke width (head dim 16), f32: on each loop
+    (a stack the loop does not take falls back as the reference's engine
+    does: mamba2 serves every loop on the contiguous one, with no kernel)
+    the captured steps give the eager steps' tokens, launch counts and host
+    syncs, and the plain route's tokens; K1 runs the forward under the
+    stack's masks (phi-3: after its patch rows) and agrees with the plain
+    route's logits."""
     cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     params = init_lm(cfg, device=cuda, seed=1)
     rng = np.random.default_rng(3)
@@ -980,7 +986,7 @@ def test_a12_engines_captured_eager_and_plain_agree(cuda, arch, loop):
     for got, want in zip(captured[:3], eager[:3]):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
-    assert captured[3:5] == eager[3:5] and sum(captured[3]) > 0
+    assert captured[3:5] == eager[3:5] and (sum(captured[3]) > 0) == cfg.uses_attention
     plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
     before = launch_counts()
     plain = Engine(params, plain_cfg, sc, device=cuda).serve(reqs, 8)
@@ -988,10 +994,13 @@ def test_a12_engines_captured_eager_and_plain_agree(cuda, arch, loop):
     for g, w in zip(captured[0], plain):
         np.testing.assert_array_equal(g, w)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 40)), device=cuda)  # S past the ring
+    batch = {"tokens": toks}
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = torch.randn(3, cfg.frontend_tokens, cfg.d_model, device=cuda)
     k1.launches = 0
     with torch.inference_mode():
-        logits, aux = apply_lm(params, {"tokens": toks}, cfg)
-        logits_p, aux_p = apply_lm(params, {"tokens": toks}, plain_cfg)
+        logits, aux = apply_lm(params, batch, cfg)
+        logits_p, aux_p = apply_lm(params, batch, plain_cfg)
     assert k1.launches == sum(m.startswith("attn") for m, _ in
                               (*cfg.pattern * cfg.n_blocks, *cfg.remainder))
     _close(logits[..., :cfg.vocab_size], logits_p[..., :cfg.vocab_size], 1e-4)
@@ -1185,7 +1194,7 @@ def test_captured_temperature_sampling_is_seed_deterministic(cuda):
 # ---- quantized pools (A8) and speculative decoding (A9) ----
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
-@pytest.mark.parametrize("d", [32, 48, 64, 128])
+@pytest.mark.parametrize("d", [32, 48, 64, 96, 128])
 def test_paged_kernels_on_fp8_pools(cuda, d, group):
     """K3 and K4 on an fp8 (e4m3) pool with NaN scales on the garbage page,
     f32 and bf16 q, every built head dim and group: one launch each, against

@@ -136,7 +136,7 @@ def test_port_configs_are_the_reference_data():
         for tc, jc in ((get_config(name), jmod.CONFIG), (get_smoke_config(name), jmod.SMOKE)):
             assert tc == bridge.config_from_reference(jc)
     with pytest.raises(NotImplementedError, match="A12"):
-        get_config("mamba2-2.7b")
+        get_config("seamless-m4t-medium")
 
 
 def test_init_lm_tree_matches_reference_structure():
@@ -156,7 +156,8 @@ def test_init_lm_tree_matches_reference_structure():
 
 
 def test_unported_mixers_raise():
-    bad = dataclasses.replace(j_qwen3.SMOKE, pattern=(("ssm", "none"),))
+    # the encoder's bidirectional mixer is still refused (A12 f)
+    bad = dataclasses.replace(j_qwen3.SMOKE, pattern=(("attn_bidir", "swiglu"),))
     with pytest.raises(NotImplementedError, match="A12"):
         ttf.init_lm(bridge.config_from_reference(bad), device="cpu")
     # a quantized pool (A8) needs the paged layout, as the reference's

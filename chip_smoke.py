@@ -77,8 +77,10 @@ non-zero:
      bit, and the restored checkpoint serves the in-memory weights' tokens;
  15. the quantized pool (`kv_dtype` int8 and fp8) at full width, f32: phase
      9's requests through the paged and the mixed loops, captured (K3 / K4
-     launched), and captured = eager (tokens, launches, host syncs) on the
-     4 shortest requests; the sequential and packed write paths fed the
+     launched), and captured = eager (tokens, launches, host syncs, the
+     allocator) on phase 5's short workload (2 requests, 8 new); the 4
+     shortest requests alone on the int8 paged loop (phase 17's baseline);
+     the sequential and packed write paths fed the
      same K/V rows store byte-equal pages and scales (an identity-weight
      layer, so the packed step's K/V are its rows); K3 and K4 on the pages
      the engines wrote against their plain versions; teacher-forced, the
@@ -134,6 +136,18 @@ non-zero:
      f32 (`_mamba2_phase`): the chunked forward against the captured
      decode chain, the contiguous loop captured = eager, paged and mixed
      engines routed to it, no kernel launched;
+ 20. seamless-m4t-medium at full width and depth (12 encoder + 12
+     decoder layers, d 1024, 16 heads of 64, vocab 256206, the audio-frame
+     stub), f32, seeded random weights (`_encdec_phase`): K1, K6 and K5 at
+     the encoder's shape (T 1024 against T 1024, full) and cross
+     attention's (S 256 against T 1024, full) against plain, timed beside
+     SDPA and their bounds; `apply_encdec` at B 2 (1024 frames, 256
+     tokens), kernels against plain, 36 K1 launches; one train step on the
+     kernel, FA2 and plain paths; encode, the cross cache and 64 greedy
+     decode steps at B 4 from a 16-token prompt, kernel = plain tokens, 24
+     K2 launches a step, decode logits against the forward, K2 against
+     plain (and timed) on the self cache and the cross cache (cache_len T);
+     an eager decode step's breakdown;
  14. (last) the kernels line (JSON) and the total seconds, then the result
      line (JSON).
 
@@ -325,6 +339,31 @@ def _fmt_bounds(bounds: dict, ops: float, ms: dict) -> str:
     named = {"f32_cuda": "f32 on the CUDA cores", "3xtf32": "3xTF32", "bf16": "bf16"}
     return ("bounds " + ", ".join(f"{named[k]} {t:.4f} ms ({by})" for k, (t, by) in bounds.items())
             + f"; achieved TFLOP/s {rates}")
+
+
+def _launches() -> dict:
+    """The six kernels' launch counters, by kernel name."""
+    from repro_torch.kernels import fa2_fwd as k6
+    from repro_torch.kernels import flashd_bwd as k5
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_fwd as k1
+    from repro_torch.kernels import flashd_varlen as k4
+
+    return {"flashd_fwd": k1.launches, "flashd_decode": k2.launches,
+            "flashd_decode_paged": k2.paged_launches, "flashd_varlen": k4.launches,
+            "flashd_bwd": k5.launches, "fa2_fwd": k6.launches}
+
+
+def _zero_launches() -> None:
+    """Set every launch counter to 0 (just before a main-path run)."""
+    from repro_torch.kernels import fa2_fwd as k6
+    from repro_torch.kernels import flashd_bwd as k5
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_fwd as k1
+    from repro_torch.kernels import flashd_varlen as k4
+
+    k1.launches = k2.launches = k2.paged_launches = k4.launches = k5.launches = 0
+    k6.launches = 0
 
 
 class _Phase:
@@ -1015,15 +1054,16 @@ def _ptxas_hd(name: str, tag: str) -> str:
             f"loads {loads} B")
 
 
-def _phi3_attn(dev, cfg, flush):
-    """Phase 19's direct checks of K1, K6 and K5 at phi-3-vision's attention
-    shape (B 1, Hq = Hkv = 32, head dim 96, S PHI3_SEQ, causal) against
-    their plain versions: O and Λ within F32_TOL in f32 (K6's O against
-    K1's too), O within BF16_TOL in bf16; dQ, dK, dV within GRAD_RTOL /
-    GRAD_ATOL per entry in f32 and GRAD_BF16·max|grad| in bf16. Each timed
-    (CUDA events, L2 flushed) in both dtypes beside its plain version (f32),
-    one SDPA call in the same dtype (its backward for K5) and its bounds.
-    Returns ({kernel name: row of phi3_d96_* values}, report)."""
+def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv: int,
+                  mask: str, seed: int):
+    """K1, K6 and K5 at one attention shape ([B, H, S, d] views of
+    model-layout tensors, Sq query rows against Skv keys, the `mask` kind
+    'full', or 'causal' at Sq = Skv) against their plain versions: O and Λ within F32_TOL
+    in f32 (K6's O against K1's too), O within BF16_TOL in bf16; dQ, dK, dV
+    within GRAD_RTOL / GRAD_ATOL per entry in f32 and GRAD_BF16·max|grad| in
+    bf16. Each timed (CUDA events, L2 flushed) in both dtypes beside its
+    plain version (f32), one SDPA call in the same dtype (its backward for
+    K5) and its bounds. Returns ({kernel name: row}, report)."""
     import torch
     import torch.nn.functional as F
 
@@ -1032,20 +1072,23 @@ def _phi3_attn(dev, cfg, flush):
     from repro_torch.kernels import flashd_bwd as k5
     from repro_torch.kernels import flashd_fwd as k1
 
-    gen = torch.Generator(device=dev).manual_seed(19)
-    b, s, hq, hkv, d = 1, PHI3_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    causal = MaskSpec("causal")
+    causal = mask == "causal"
+    assert not causal or sq == skv, "SDPA's is_causal aligns a causal mask top-left"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = MaskSpec(mask)
     # q, k, v, dO as [B, H, S, d] views of model-layout tensors
-    x32 = [torch.randn(b, s, h, d, generator=gen, device=dev).transpose(1, 2)
-           for h in (hq, hkv, hkv, hq)]
-    pairs = b * s * (s + 1) // 2
-    shape = f"B{b} Hq{hq} Hkv{hkv} d{d} Sq=Skv={s} causal, f32 (3xTF32 on the tensor cores) and bf16"
-    elems = 2 * b * s * hq * d + 2 * b * s * hkv * d  # q, O; k, v
-    k5_elems = b * s * d * (3 * hq + 2 * hkv) + b * s * d * (hq + 2 * hkv)
+    x32 = [torch.randn(b, s_, h, d, generator=gen, device=dev).transpose(1, 2)
+           for s_, h in ((sq, hq), (skv, hkv), (skv, hkv), (sq, hq))]
+    pairs = b * (sq * (sq + 1) // 2 if causal else sq * skv)
+    shape = (f"B{b} Hq{hq} Hkv{hkv} d{d} Sq{sq} Skv{skv} {mask}, f32 (3xTF32 on the tensor "
+             f"cores) and bf16")
+    elems = 2 * b * sq * hq * d + 2 * b * skv * hkv * d  # q, O; k, v
+    k5_elems = b * d * (4 * sq * hq + 4 * skv * hkv)  # q, O, dO, dQ; k, v, dK, dV
     ops = {"fwd": 4 * d * hq * pairs, "bwd": 10 * d * hq * pairs}
-    bounds = {"fwd": _attn_bounds(ops["fwd"], 4 * elems + 4 * b * hq * s, 2 * elems + 4 * b * hq * s),
-              "bwd": _attn_bounds(ops["bwd"], 4 * k5_elems + 4 * b * hq * s,
-                                  2 * k5_elems + 4 * b * hq * s)}
+    lam_bytes = 4 * b * hq * sq
+    bounds = {"fwd": _attn_bounds(ops["fwd"], 4 * elems + lam_bytes, 2 * elems + lam_bytes),
+              "bwd": _attn_bounds(ops["bwd"], 4 * k5_elems + lam_bytes,
+                                  2 * k5_elems + lam_bytes)}
     rows, report = {}, []
     for name, kern, plain, kind in (
             ("flashd_fwd", k1.flashd_fwd, k1.flashd_fwd_plain, "fwd"),
@@ -1056,22 +1099,22 @@ def _phi3_attn(dev, cfg, flush):
             q, k, v, do = (x.to(dt) for x in x32)
             if kind == "fwd":
                 args = (q, k, v)
-                (o, lam), (o_p, lam_p) = kern(*args, mask=causal), plain(*args, mask=causal)
+                (o, lam), (o_p, lam_p) = kern(*args, mask=spec), plain(*args, mask=spec)
                 if dt == torch.float32:
                     err = max(_err(o, o_p), _err(lam, lam_p))
                     if name == "fa2_fwd":
-                        err = max(err, _err(o, k1.flashd_fwd(*args, mask=causal)[0]))
+                        err = max(err, _err(o, k1.flashd_fwd(*args, mask=spec)[0]))
                     ok = err <= F32_TOL
                 else:
                     err = _err(o, o_p)
                     ok = err <= BF16_TOL
                 ok = ok and bool(torch.isfinite(o).all())
                 lib_x = tuple(x.contiguous() for x in args)
-                lib = lambda: F.scaled_dot_product_attention(*lib_x, is_causal=True,
+                lib = lambda: F.scaled_dot_product_attention(*lib_x, is_causal=causal,
                                                              enable_gqa=True)
             else:
-                args = (q, k, v, *k1.flashd_fwd_plain(q, k, v, mask=causal), do)
-                got, want = kern(*args, mask=causal), plain(*args, mask=causal)
+                args = (q, k, v, *k1.flashd_fwd_plain(q, k, v, mask=spec), do)
+                got, want = kern(*args, mask=spec), plain(*args, mask=spec)
                 err, ok = 0.0, True
                 for a, w in zip(got, want):
                     diff = (a.float() - w.float()).abs()
@@ -1083,30 +1126,28 @@ def _phi3_attn(dev, cfg, flush):
                     err = max(err, float(diff.max()))
                 del got, want
                 q_l, k_l, v_l = (x.contiguous().requires_grad_() for x in (q, k, v))
-                o_l = F.scaled_dot_product_attention(q_l, k_l, v_l, is_causal=True,
+                o_l = F.scaled_dot_product_attention(q_l, k_l, v_l, is_causal=causal,
                                                      enable_gqa=True)
                 do_l = do.contiguous()
                 lib = lambda: torch.autograd.grad(o_l, (q_l, k_l, v_l), do_l, retain_graph=True)
-            assert ok, (name, "phi-3 d96", dt, err)
-            row[f"phi3_d96_{tag}max_abs_err"] = err
-            row[f"phi3_d96_{tag}ms"] = _time_ms(lambda: kern(*args, mask=causal), flush=flush)
-            row[f"phi3_d96_{tag}library_ms"] = _time_ms(lib, flush=flush)
+            assert ok, (name, shape, dt, err)
+            row[f"{tag}max_abs_err"] = err
+            row[f"{tag}ms"] = _time_ms(lambda: kern(*args, mask=spec), flush=flush)
+            row[f"{tag}library_ms"] = _time_ms(lib, flush=flush)
             if dt == torch.float32:
-                row["phi3_d96_plain_ms"] = _time_ms(lambda: plain(*args, mask=causal), reps=3,
-                                                    flush=flush)
+                row["plain_ms"] = _time_ms(lambda: plain(*args, mask=spec), reps=3, flush=flush)
             del args, lib
-        row["phi3_d96_bound_ms"], row["phi3_d96_bound_by"] = bounds[kind]["3xtf32"]
-        row["phi3_d96_bf16_bound_ms"] = bounds[kind]["bf16"][0]
-        row["phi3_d96_shape"] = shape
+        row["bound_ms"], row["bound_by"] = bounds[kind]["3xtf32"]
+        row["bf16_bound_ms"] = bounds[kind]["bf16"][0]
+        row["shape"] = shape
         rows[name] = row
         report.append(
-            f"{name} max|Δ| f32 {row['phi3_d96_max_abs_err']:.2e}, bf16 "
-            f"{row['phi3_d96_bf16_max_abs_err']:.2e}; kernel {row['phi3_d96_ms']:.4f} / "
-            f"{row['phi3_d96_bf16_ms']:.4f} ms (f32 / bf16), plain {row['phi3_d96_plain_ms']:.3f} "
-            f"ms, sdpa{' backward' if kind == 'bwd' else ''} {row['phi3_d96_library_ms']:.4f} / "
-            f"{row['phi3_d96_bf16_library_ms']:.4f} ms; "
-            + _fmt_bounds(bounds[kind], ops[kind], {"kernel f32": row["phi3_d96_ms"],
-                                                    "kernel bf16": row["phi3_d96_bf16_ms"]}))
+            f"{name} max|Δ| f32 {row['max_abs_err']:.2e}, bf16 {row['bf16_max_abs_err']:.2e}; "
+            f"kernel {row['ms']:.4f} / {row['bf16_ms']:.4f} ms (f32 / bf16), plain "
+            f"{row['plain_ms']:.3f} ms, sdpa{' backward' if kind == 'bwd' else ''} "
+            f"{row['library_ms']:.4f} / {row['bf16_library_ms']:.4f} ms; "
+            + _fmt_bounds(bounds[kind], ops[kind], {"kernel f32": row["ms"],
+                                                    "kernel bf16": row["bf16_ms"]}))
     text = (f"K1, K6, K5 at {shape} against plain (bounds: f32 O, Λ {F32_TOL}, gradients rtol "
             f"{GRAD_RTOL} atol {GRAD_ATOL}; bf16 O {BF16_TOL}, gradients {GRAD_BF16:.4f}"
             f"·max|grad|): " + "; ".join(report))
@@ -1118,7 +1159,8 @@ def _phi3_phase(dev, card: str, flush):
     head dim 96, d_ff 8192, vocab 32064, 256 patch rows), f32, seeded random
     weights:
 
-      * K1, K6 and K5 at its attention shape (`_phi3_attn`);
+      * K1, K6 and K5 at its attention shape (B 1, Hq = Hkv = 32, head dim
+        96, S PHI3_SEQ, causal; `_attn_kernels`);
       * one train step with `patch_embeds` (B 1, 256 patch rows + 1024
         tokens) on the kernel path (K1 + K5), the plain path and the FA2
         path (K6 + K5) from the same seeded weights: loss and grad norm
@@ -1140,11 +1182,6 @@ def _phi3_phase(dev, card: str, flush):
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.kernels import fa2_fwd as k6
-    from repro_torch.kernels import flashd_bwd as k5
-    from repro_torch.kernels import flashd_decode as k2
-    from repro_torch.kernels import flashd_fwd as k1
-    from repro_torch.kernels import flashd_varlen as k4
     from repro_torch.models.transformer import apply_lm, decode_step_lm, init_decode_cache, init_lm
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.serve.graphs import StepGraphs
@@ -1153,17 +1190,13 @@ def _phi3_phase(dev, card: str, flush):
 
     cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), dtype="float32")
     plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
-    rows, attn_text = _phi3_attn(dev, cfg, flush)
+    attn_rows, attn_text = _attn_kernels(dev, flush, b=1, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                                         d=cfg.head_dim_, sq=PHI3_SEQ, skv=PHI3_SEQ,
+                                         mask="causal", seed=19)
+    rows = {kernel: {f"phi3_d96_{key}": val for key, val in row.items()}
+            for kernel, row in attn_rows.items()}
 
-    def counts():
-        return {"flashd_fwd": k1.launches, "flashd_decode": k2.launches,
-                "flashd_decode_paged": k2.paged_launches, "flashd_varlen": k4.launches,
-                "flashd_bwd": k5.launches, "fa2_fwd": k6.launches}
-
-    def reset():
-        k1.launches = k2.launches = k2.paged_launches = k4.launches = k5.launches = 0
-        k6.launches = 0
-
+    counts, reset = _launches, _zero_launches
     launched = dict.fromkeys(counts(), 0)
 
     def add(got):
@@ -1426,6 +1459,204 @@ def _mamba2_phase(dev, card: str):
             f"takes no packed step), host syncs {runs['captured'][3]} = {runs['eager'][3]}, "
             f"captured {rate('captured')} ({runs['captured'][2]} graphs), eager {rate('eager')}, "
             f"paged {rate('paged')}; no FLASH-D kernel launched; {bd}")
+
+
+SEAMLESS_T, SEAMLESS_S = 1024, 256  # phase 20: audio frames and decoder tokens (B 2)
+SEAMLESS_PROMPT, SEAMLESS_NEW = 16, 64  # phase 20's decode chain at B 4
+
+
+def _encdec_phase(dev, card: str, flush):
+    """Phase 20, seamless-m4t-medium at full width and depth (12 encoder + 12
+    decoder layers, d 1024, Hq = Hkv = 16 of head dim 64, d_ff 4096, vocab
+    256206, the audio-frame stub), f32, seeded random weights:
+
+      * K1, K6 and K5 at the encoder's attention shape (B 1, T 1024 against
+        T 1024, full) and cross attention's (S 256 against T 1024, full)
+        against plain, timed beside SDPA and their bounds (`_attn_kernels`);
+      * the forward (`apply_encdec`, B 2, T SEAMLESS_T frames, S SEAMLESS_S
+        tokens), kernels against plain: logits within LOGIT_TOL; 36 K1
+        launches (12 encoder, 12 causal self, 12 cross at Sq ≠ Skv);
+      * one train step on the kernel (K1 + K5), FA2 (K6 + K5) and plain
+        paths from the same state on that batch: loss and grad norm within
+        TRAIN_REL[0] of plain, the launches remat 'full' gives; peak memory;
+      * `encode` → `fill_cross_cache` → SEAMLESS_PROMPT prompt positions and
+        SEAMLESS_NEW greedy tokens of `decode_step_encdec` at B 4, kernels
+        and plain: tokens identical, 24 K2 launches a step; the kernel
+        path's decode logits against its forward over the same tokens
+        within LOGIT_TOL; K2 against plain on the served self cache and on
+        the cross cache (cache_len T in every row), timed (`_served_direct`);
+      * an eager decode step's breakdown.
+
+    Counts are reset just before each kernel-path run. Returns (report,
+    launches per kernel over the kernel-path runs, {kernel: seamless_* row})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec as ed
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-medium"), dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    v, dm, t_mem = cfg.vocab_size, cfg.d_model, SEAMLESS_T
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers  # K1 calls a forward
+    rows, attn_text = {}, []
+    for tag, sq in (("enc", t_mem), ("cross", SEAMLESS_S)):
+        got, text = _attn_kernels(dev, flush, b=1, hq=cfg.n_heads, hkv=cfg.n_kv_heads,
+                                  d=cfg.head_dim_, sq=sq, skv=t_mem, mask="full", seed=20)
+        for kernel, row in got.items():
+            rows.setdefault(kernel, {}).update({f"seamless_{tag}_{k}": x for k, x in row.items()})
+        attn_text.append(f"{tag}: {text}")
+    launched = dict.fromkeys(_launches(), 0)
+
+    def add(got):
+        for key in launched:
+            launched[key] += got[key]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = ed.init_encdec(cfg, device=dev, seed=0)
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rng = np.random.default_rng(20)
+    batch = {"frame_embeds": torch.randn(2, t_mem, dm, generator=gen, device=dev),
+             "tokens": torch.as_tensor(rng.integers(0, v, (2, SEAMLESS_S)), device=dev),
+             "labels": torch.as_tensor(rng.integers(0, v, (2, SEAMLESS_S)), device=dev)}
+
+    # the forward, kernels against plain
+    fwd = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        _zero_launches()
+        with torch.inference_mode():
+            t = time.perf_counter()
+            logits = ed.apply_encdec(params, batch, c)[0][..., :v]
+            torch.cuda.synchronize()
+            fwd[name] = (logits, time.perf_counter() - t)
+        got = _launches()
+        if name == "kernel":
+            assert got["flashd_fwd"] == n_attn and sum(got.values()) == n_attn, got
+            add(got)
+        else:
+            assert sum(got.values()) == 0, ("seamless forward: the plain path launched", got)
+    logit_err = _err(fwd["kernel"][0], fwd["plain"][0])
+    assert torch.isfinite(fwd["kernel"][0]).all() and logit_err <= LOGIT_TOL, logit_err
+    fwd_s = {name: x[1] for name, x in fwd.items()}
+    del fwd, logits
+
+    # one train step on each path from the same state
+    tc = TrainConfig(warmup_steps=0, total_steps=4)  # the lr peaks at step 0
+    state = init_train_state(cfg, tc, params=params)
+    train = {}
+    for name, impl in (("kernel", "flashd_gpu"), ("plain", "flashd_plain"), ("fa2", "fa2_gpu")):
+        step = make_train_step(dataclasses.replace(cfg, attn_impl=impl), tc)
+        torch.cuda.synchronize()
+        _zero_launches()
+        t = time.perf_counter()
+        new, m = step(state, batch)
+        loss, gnorm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+        train[name] = (loss, gnorm, time.perf_counter() - t)
+        got = _launches()
+        del new, m, step
+        if name == "plain":
+            assert sum(got.values()) == 0, ("seamless train: the plain path launched", got)
+        else:  # remat 'full': each block's forward runs again in the backward
+            fwd_k = "flashd_fwd" if name == "kernel" else "fa2_fwd"
+            assert got[fwd_k] == 2 * n_attn and got["flashd_bwd"] == n_attn, (name, got)
+            assert sum(got.values()) == 3 * n_attn, (name, got)
+            add(got)
+    del state
+    train_peak = torch.cuda.max_memory_allocated()
+    for name in ("kernel", "fa2"):
+        for i, what in ((0, "loss"), (1, "grad norm")):
+            x, y = train[name][i], train["plain"][i]
+            assert np.isfinite(x) and abs(x - y) <= TRAIN_REL[0] * abs(y), (name, what, x, y)
+
+    # the decode chain: encode, the cross cache, a prompt, greedy tokens
+    b, n_prompt = 4, SEAMLESS_PROMPT
+    n_steps = n_prompt + SEAMLESS_NEW - 1  # the last new token is not fed back
+    max_len = n_steps + 17  # a self cache longer than the chain
+    frames = torch.randn(b, t_mem, dm, generator=gen, device=dev)
+    prompt = torch.as_tensor(rng.integers(0, v, (b, n_prompt)), device=dev)
+    chains = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        _zero_launches()
+        per_step, step_logits, new_toks = set(), [], []
+        with torch.inference_mode():
+            t = time.perf_counter()
+            cache = ed.fill_cross_cache(params, ed.encode(params, frames, c),
+                                        ed.init_encdec_cache(b, max_len, 8, c, device=dev), c)
+            tok = prompt[:, 0]
+            for i in range(n_steps):
+                before = _launches()["flashd_decode"]
+                lg, cache = ed.decode_step_encdec(params, cache, tok,
+                                                  torch.full((b,), i, device=dev), c)
+                per_step.add(_launches()["flashd_decode"] - before)
+                lg = lg[:, :v]
+                step_logits.append(lg)
+                if i + 1 >= n_prompt:
+                    new_toks.append(lg.argmax(-1))
+                tok = prompt[:, i + 1] if i + 1 < n_prompt else new_toks[-1]
+            torch.cuda.synchronize()
+            chains[name] = (torch.stack(new_toks, 1), time.perf_counter() - t, cache,
+                            torch.stack(step_logits, 1))
+        del step_logits
+        got = _launches()
+        if name == "kernel":
+            assert per_step == {2 * cfg.n_layers}, ("K2 launches a step", per_step)
+            assert got["flashd_decode"] == 2 * cfg.n_layers * n_steps, got
+            assert got["flashd_fwd"] == cfg.n_encoder_layers, got  # encode
+            add(got)
+        else:
+            assert sum(got.values()) == 0, ("seamless decode: the plain path launched", got)
+    toks, chain_s, cache, step_logits = chains["kernel"]
+    plain_chain_s = chains["plain"][1]
+    assert toks.shape == (b, SEAMLESS_NEW) and torch.equal(toks, chains["plain"][0]), \
+        "seamless decode: kernel and plain tokens differ"
+    assert cache["cross_k"].shape[2] == t_mem  # the memory's length, not the buffer's 8
+    with torch.inference_mode():  # teacher-forced: the forward over the fed tokens
+        fed = torch.cat([prompt, toks[:, :-1]], 1)
+        full = ed.apply_encdec(params, {"frame_embeds": frames, "tokens": fed}, cfg)[0][..., :v]
+        tf_err = _err(full, step_logits)
+        del full, step_logits
+        assert tf_err <= LOGIT_TOL, ("seamless decode vs forward", tf_err)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        qd = torch.randn(b, cfg.n_heads, cfg.head_dim_, generator=gen, device=dev)
+        direct = {
+            "self": _served_direct({"k": cache["self_k"], "v": cache["self_v"]}, qd, n_sm,
+                                   "contiguous", (n_steps - 1, 40, n_prompt - 1, 0),
+                                   "the first decoder layer's self cache", flush=flush),
+            "cross": _served_direct({"k": cache["cross_k"], "v": cache["cross_v"]}, qd, n_sm,
+                                    "contiguous", (t_mem - 1,) * b,
+                                    "the first decoder layer's cross cache", flush=flush)}
+    for tag, (_, _, row) in direct.items():
+        rows.setdefault("flashd_decode", {}).update(
+            {f"seamless_{tag}_{k}": x for k, x in row.items()})
+    tok4 = torch.zeros(b, dtype=torch.long, device=dev)
+    at = torch.full((b,), 40, dtype=torch.long, device=dev)
+    bd = _breakdown(f"eager decode step B{b} pos40 (self cache {max_len}, cross cache {t_mem})",
+                    lambda: ed.decode_step_encdec(params, cache, tok4, at, cfg),
+                    watch=("decode_kernel",))
+    del cache, chains, params, batch
+    peak = torch.cuda.max_memory_allocated()
+    tr = lambda name: f"{train[name][:2]} in {train[name][2]:.2f} s"
+    n_new = b * SEAMLESS_NEW
+    return (f"seamless-m4t-medium f32 full width and depth ({cfg.n_encoder_layers} encoder + "
+            f"{cfg.n_layers} decoder layers, d {dm}, Hq = Hkv = {cfg.n_heads} of head dim "
+            f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {v}), {param_bytes / 1e9:.2f} GB of "
+            f"parameters, peak {peak / 1e9:.2f} GB allocated, on {card}: "
+            + "; ".join(attn_text)
+            + f"; forward B2 x (T {t_mem} frames, S {SEAMLESS_S} tokens) kernel "
+            f"{fwd_s['kernel']:.2f} s, plain {fwd_s['plain']:.2f} s, {n_attn} K1 launches, "
+            f"max|Δlogit| {logit_err:.2e} (bound {LOGIT_TOL}); train step on that batch, loss / "
+            f"grad norm kernel {tr('kernel')}, fa2 {tr('fa2')}, plain {tr('plain')} (bound "
+            f"{TRAIN_REL[0]} relative), peak {train_peak / 1e9:.2f} GB allocated; decode B{b}: "
+            f"encode, fill_cross_cache, {n_prompt} prompt positions and {SEAMLESS_NEW} greedy "
+            f"tokens, tokens identical kernel = plain, {2 * cfg.n_layers} K2 launches a step, "
+            f"kernel {n_new / chain_s:.1f} tok/s ({chain_s:.2f} s), plain "
+            f"{n_new / plain_chain_s:.1f} tok/s; teacher-forced against the forward max|Δlogit| "
+            f"{tf_err:.2e} (bound {LOGIT_TOL}); "
+            + "; ".join(d_[1] for d_ in direct.values()) + f"; {bd}"), launched, rows
 
 
 def main() -> int:
@@ -2342,16 +2573,21 @@ def main() -> int:
     ph = _Phase()
     lcfg = dataclasses.replace(cfg, n_layers=2, attn_impl="flashd_gpu")
     ldata = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=bt, seed=1))
-    ltc = TrainConfig(warmup_steps=0, total_steps=6)
-    res = ResilienceConfig(ckpt_every=3, keep_checkpoints=1)
+    n_life, every, fault_at = 4, 2, 3  # steps; checkpoints of the faulted run; its fault
+    ltc = TrainConfig(warmup_steps=0, total_steps=n_life)
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(HERE, "build"))
     try:
-        kw = dict(model_cfg=lcfg, train_cfg=ltc, data=ldata, total_steps=6, res=res, device=dev)
-        clean, clean_hist, ctr0 = train_resilient(ckpt_dir=os.path.join(root, "clean"), **kw)
-        inj = FaultInjector(schedule=[("grad_step", 4)])
-        got, hist, ctr = train_resilient(ckpt_dir=os.path.join(root, "faulted"), injector=inj,
-                                         **kw)
+        kw = dict(model_cfg=lcfg, train_cfg=ltc, data=ldata, total_steps=n_life, device=dev)
+        # the clean run writes its final checkpoint only; the faulted one restores from
+        # the checkpoint before its fault and replays from there
+        clean, clean_hist, ctr0 = train_resilient(
+            ckpt_dir=os.path.join(root, "clean"), **kw,
+            res=ResilienceConfig(ckpt_every=n_life, keep_checkpoints=1))
+        inj = FaultInjector(schedule=[("grad_step", fault_at)])
+        got, hist, ctr = train_resilient(
+            ckpt_dir=os.path.join(root, "faulted"), injector=inj, **kw,
+            res=ResilienceConfig(ckpt_every=every, keep_checkpoints=1))
         assert ctr0["restarts"] == 0 and ctr["restarts"] == 1 and ctr["faults"] == 1, ctr
         clean_curve, got_curve = [h["loss"] for h in clean_hist], [h["loss"] for h in hist]
         assert got_curve == clean_curve, ("resume is not bitwise", got_curve, clean_curve)
@@ -2369,7 +2605,8 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     _line(13, f"lifecycle, qwen3-0.6b full width at {lcfg.n_layers} layers, B {bt} x S 256, "
-              f"6 steps, checkpoint every 3: a grad_step fault at step 4 → {ctr['restarts']} "
+              f"{n_life} steps, checkpoint every {every}: a grad_step fault at step {fault_at} "
+              f"→ {ctr['restarts']} "
               f"restart, loss curve bitwise equal to the clean run {got_curve}; checkpoint "
               f"(step {extra['data_step']}, {ck_bytes / 2**30:.2f} GiB on disk at the end) "
               f"restored into serve.Engine gives the in-memory weights' 2x16 greedy tokens {ph}")
@@ -2381,7 +2618,7 @@ def main() -> int:
 
     short = [reqs[i] for i in sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:4]]
     quant_report, quant_launches, quant_toks, quant_engines = [], {}, {}, {}
-    quant_short = {}  # the captured runs on the 4 shortest requests (phase 17's int8 baseline)
+    quant_short = {}  # the captured int8 paged run on the 4 shortest (phase 17's baseline)
     for kv in ("int8", "fp8"):
         for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
             qsc = ServeConfig(max_batch=4, max_len=512, kv_dtype=kv, **kw)
@@ -2398,26 +2635,30 @@ def main() -> int:
             # byte pool that can move a later layer's K/V across a rounding edge,
             # so the streams are compared (and held teacher-forced below)
             vs_plain = _agreement(run["toks"], plain_run["toks"])
-            # the eager oracle on the 4 shortest requests (fresh engines, both)
-            cap = pool_serve(Engine(params, cfg, qsc, device=dev), short)
-            eag = pool_serve(Engine(params, cfg, qsc, device=dev, graphs=False), short)
-            assert cap["launched"] == eag["launched"] and cap["syncs"] == eag["syncs"], \
-                (kv, mode, cap["launched"], eag["launched"])
-            for a, b_ in zip(cap["toks"], eag["toks"]):
-                assert np.array_equal(a, b_), f"{kv} {mode}: captured and eager tokens differ"
-            by_req = {id(r): t for r, t in zip(reqs, run["toks"])}
-            vs_8 = _agreement(cap["toks"], [by_req[id(r)] for r in short])
+            # the eager oracle on phase 5's short workload (fresh engines, both)
+            oracle_engines = {g: Engine(params, cfg, qsc, device=dev, graphs=g)
+                              for g in (None, False)}
+            oracle = {g: _oracle(e, None, short[:2]) for g, e in oracle_engines.items()}
+            oracle_text = _check_oracle(f"{kv} {mode}", oracle)
+            for e in oracle_engines.values():
+                e._alloc.check()
+                assert e.stats()["pages_in_use"] == e.stats()["cached_pages"], "pages leaked"
+            del oracle_engines
+            if (kv, mode) == ("int8", "paged"):  # phase 17's baseline: the 4 shortest alone
+                quant_short[kv, mode] = pool_serve(Engine(params, cfg, qsc, device=dev),
+                                                   short)["toks"]
+                by_req = {id(r): t for r, t in zip(reqs, run["toks"])}
+                in_8 = [by_req[id(r)] for r in short]
+                oracle_text += (f"; the 4 shortest alone against the same requests in the "
+                                f"8-request run: {_agreement(quant_short[kv, mode], in_8)}")
             qst = run["stats"]
             assert qst["kv_dtype"] == kv and eng._paged.cache["blocks"]["pos0"]["k_pages"].dtype \
                 == quant.get_spec(kv).dtype
             eng._alloc.check(eng._paged.cache)
             quant_toks[kv, mode], quant_engines[kv, mode] = run["toks"], eng
-            quant_short[kv, mode] = cap["toks"]
             quant_report.append(
                 f"{kv} {mode}: captured {n_serve / run['s']:.1f} tok/s, mean TTFT "
-                f"{run['ttft'] * 1e3:.1f} ms (eager oracle on 4 requests {cap['launched'][1:]} = "
-                f"{eag['launched'][1:]} K3/K4 launches, {cap['syncs']} = {eag['syncs']} syncs, "
-                f"tokens equal; against the same requests in the 8-request run: {vs_8}); "
+                f"{run['ttft'] * 1e3:.1f} ms ({oracle_text}); "
                 f"kernel vs plain tokens {vs_plain}; vs the native pool's "
                 f"{_agreement(run['toks'], kern['serve'])}; kv_bytes_per_token "
                 f"{qst['kv_bytes_per_token']:.1f} (page {eng._page_layout.page_size}, "
@@ -2699,6 +2940,12 @@ def main() -> int:
     gc.collect()
     _line(19, f"{_mamba2_phase(dev, card)} {ph}")
 
+    # ---- 20. seamless-m4t-medium (encoder-decoder) at full width and depth ----
+    ph = _Phase()
+    gc.collect()
+    ed_text, ed_launches, ed_rows = _encdec_phase(dev, card, flush)
+    _line(20, f"{ed_text} {ph}")
+
     # ---- 14. kernels line, result line ----
     kernels = [
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
@@ -2796,6 +3043,11 @@ def main() -> int:
     for row in kernels:
         row["phi3_launches"] = phi3_launches[row["name"]]
         row.update(phi3_rows[row["name"]])
+    # phase 20: seamless-m4t-medium's main path (forward, train steps, decode
+    # chain) and K1 / K6 / K5 / K2 at its shapes
+    for row in kernels:
+        row["seamless_launches"] = ed_launches[row["name"]]
+        row.update(ed_rows.get(row["name"], {}))
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}; all phases "
               f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

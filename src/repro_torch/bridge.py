@@ -1,8 +1,10 @@
 """Move weights and configs between the JAX reference and the port.
 
-The reference keeps parameters as a nested dict of arrays; `jax.tree.map(
-np.asarray, params)` turns it into numpy, and `params_from_numpy` turns
-that into the port's dict of tensors (and `params_to_numpy` back). numpy
+The reference keeps parameters as a nested dict of arrays (a decoder's
+`blocks/pos{j}/...`, an encoder-decoder's `enc_blocks` / `dec_blocks`);
+`jax.tree.map(np.asarray, params)` turns it into numpy, and
+`params_from_numpy` turns that into the port's dict of tensors (and
+`params_to_numpy` back), whatever the nesting. numpy
 has no bfloat16 that torch reads, so a bf16 leaf (ml_dtypes' bfloat16)
 goes through float32 — exact, bf16 ⊂ f32 — and is cast back to bf16 on the
 torch side; `params_to_numpy` returns bf16 leaves as float32.

@@ -1,7 +1,7 @@
 """Config registry: --arch <id> resolves here. The port carries copies of
-the reference's config data for the architectures it runs (dense GQA, MoE
+the reference's config data for all of its architectures (dense GQA, MoE
 with chunked attention, RG-LRU with local attention, the Mamba-2 SSM, the
-vision stub); the encoder-decoder one raises "not ported" (A12)."""
+vision stub, the encoder-decoder stack with the audio stub)."""
 
 from __future__ import annotations
 
@@ -19,15 +19,12 @@ _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "mamba2-2.7b": "mamba2_2_7b",
     "phi-3-vision-4.2b": "phi3_vision_4_2b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "paper-llama": "paper_llama",
 }
-# the reference's other architecture, queued for A12 (step f)
-_NOT_PORTED = ("seamless-m4t-medium",)
 
 
 def _module(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"arch {name!r} not ported yet (A12); have {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

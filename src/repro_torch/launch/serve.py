@@ -90,8 +90,12 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
+    if cfg.is_encdec:
+        raise SystemExit(f"--arch {args.arch}: the serving engine runs decoder-only stacks; the "
+                         f"reference serves no encoder-decoder model (its prefill_lm reads "
+                         f"params['blocks'])")
+    device = resolve_device(args.device)
     params = init_lm(cfg, device=device, seed=args.seed)
     spec_tokens = 0 if args.no_spec else args.spec_tokens
     draft = None

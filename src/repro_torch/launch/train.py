@@ -67,8 +67,13 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = configs.get_smoke_config(args.arch) if args.smoke else configs.get_config(args.arch)
+    if cfg.is_encdec:
+        raise SystemExit(f"--arch {args.arch}: an encoder-decoder stack trains on frame_embeds, "
+                         f"which the data pipeline (SyntheticLM: tokens and labels) does not "
+                         f"feed, as the reference's does not; train it through "
+                         f"train.make_train_step with a frame_embeds batch")
+    dev = resolve_device(args.device)
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
     tc = TrainConfig(

@@ -1,9 +1,11 @@
-"""Model facade: the port of `repro/models/__init__.py`, decoder-only stacks."""
+"""Model facade: the port of `repro/models/__init__.py` — one init / loss /
+decode API over the decoder-only stacks and the encoder-decoder one."""
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+from repro_torch.models import encdec as _encdec
 from repro_torch.models import transformer as _tf
 from repro_torch.models.config import ModelConfig
 
@@ -16,8 +18,24 @@ class ModelApi(NamedTuple):
     decode_step: Callable  # (params, cache, token, pos, cfg) -> (logits, cache)
 
 
+def _encdec_cache(batch: int, max_len: int, cfg: ModelConfig, *, device=None, **_paged):
+    """The enc-dec cache: self K/V of max_len positions, cross K/V capped at
+    4096 frames (`fill_cross_cache` resizes them to the memory). The paged
+    keyword arguments are taken and ignored, as the reference's: an
+    encoder-decoder stack keeps the contiguous layout."""
+    return _encdec.init_encdec_cache(batch, max_len, min(max_len, 4096), cfg, device=device)
+
+
 def get_model(cfg: ModelConfig) -> ModelApi:
-    _tf.check_ported(cfg)  # encoder-decoder stacks, the audio frontend: A12 f
+    _tf.check_ported(cfg)  # a layer kind or frontend outside the reference's
+    if cfg.is_encdec:
+        return ModelApi(
+            init=_encdec.init_encdec,
+            apply=_encdec.apply_encdec,
+            loss=_encdec.encdec_loss,
+            init_cache=_encdec_cache,
+            decode_step=_encdec.decode_step_encdec,
+        )
     return ModelApi(
         init=_tf.init_lm,
         apply=_tf.apply_lm,

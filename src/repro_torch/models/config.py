@@ -14,10 +14,9 @@ parameters stacked per pattern position. Mixers:
   ssm           Mamba-2 SSD block (attention-free)
   rglru         Griffin RG-LRU recurrent block
 
-FFNs: swiglu | moe | none. The port runs every mixer but `attn_bidir`,
-and the vision frontend's stub; encoder-decoder stacks (`attn_bidir`,
-cross attention) and the audio frontend raise "not ported" in
-`models/transformer.py` (A12 f).
+FFNs: swiglu | moe | none. The port runs every mixer and both frontend
+stubs (vision: `models/transformer.py`; audio, with `n_encoder_layers` >
+0: the encoder-decoder stack of `models/encdec.py`).
 """
 
 from __future__ import annotations

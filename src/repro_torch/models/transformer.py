@@ -1,11 +1,13 @@
 """Decoder LM — the port of `repro/models/transformer.py` for every
-decoder-only attention family of the reference: mixers `attn`,
-`attn_nope`, `attn_local` (sliding window), `attn_chunked` (causal within
-chunks), `rglru` (`models/rglru.py`) and `ssm` (Mamba-2, `models/mamba2.py`);
-FFNs `swiglu`, `moe` (`models/moe.py`) and `none`; the vision frontend's
-stub (precomputed patch embeddings through `patch_proj`, prepended to the
-tokens). Encoder-decoder stacks and the audio frontend raise "not ported"
-(queue item A12 f).
+attention family of the reference: mixers `attn`, `attn_nope`,
+`attn_bidir` (the full mask; decoded as global attention, as the
+reference does), `attn_local` (sliding window), `attn_chunked` (causal
+within chunks), `rglru` (`models/rglru.py`) and `ssm` (Mamba-2,
+`models/mamba2.py`); FFNs `swiglu`, `moe` (`models/moe.py`) and `none`; the
+vision frontend's stub (precomputed patch embeddings through `patch_proj`,
+prepended to the tokens). `_qkv` / `_apply_attn` also take the
+reference's `kv_x` and `kind="cross"`, which the encoder-decoder stack
+(`models/encdec.py`) builds on.
 
 Parameters are the reference's tree, a plain dict of tensors: `embed`,
 `final_norm`, `lm_head`, and `blocks/pos{j}/...` (and `rem_blocks/pos{j}`
@@ -86,20 +88,20 @@ __all__ = [
 _AUX_KEYS = moe_mod.AUX_KEYS
 _RING_MIXERS = ("attn_local", "attn_chunked")
 _STATE_MIXERS = ("rglru", "ssm")  # recurrent state: O(1) a sequence, advanced in place
-_PORTED_MIXERS = ("attn", "attn_nope", *_RING_MIXERS, *_STATE_MIXERS)
+_PORTED_MIXERS = ("attn", "attn_nope", "attn_bidir", *_RING_MIXERS, *_STATE_MIXERS)
 _PORTED_FFNS = ("swiglu", "moe", "none")
+_FRONTENDS = ("none", "vision", "audio")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for any part of `cfg` the port does not run."""
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models not ported (A12 f)")
-    if cfg.frontend not in ("none", "vision"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.frontend} frontend not ported (A12 f)")
+    """Raise for a layer kind or frontend outside the reference's lists."""
+    if cfg.frontend not in _FRONTENDS:
+        raise NotImplementedError(f"{cfg.name}: unknown frontend {cfg.frontend!r}; the port "
+                                  f"runs {_FRONTENDS}")
     for mixer, ffn in (*cfg.pattern, *cfg.remainder):
         if mixer not in _PORTED_MIXERS or ffn not in _PORTED_FFNS:
             raise NotImplementedError(
-                f"{cfg.name}: layer ({mixer}, {ffn}) not ported (A12); "
+                f"{cfg.name}: layer ({mixer}, {ffn}) is not a layer kind of the reference; "
                 f"the port runs {_PORTED_MIXERS} with {_PORTED_FFNS}"
             )
 
@@ -208,30 +210,37 @@ def _groups(cfg: ModelConfig):
     return out
 
 
-def _qkv(p, x, cfg: ModelConfig, kind: str, positions):
+def _qkv(p, x, cfg: ModelConfig, kind: str, positions, kv_x=None):
+    """q from x, k and v from `kv_x` (default x). RoPE at `positions` for q
+    and, when k comes from x, for k; a `kv_x` source is rotated over its
+    own arange. `attn_nope` and `cross` take no RoPE."""
     cdt = cfg.compute_dtype
     hd = cfg.head_dim_
     b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
     q = torch.matmul(x, p["wq"].to(cdt))
-    k = torch.matmul(x, p["wk"].to(cdt))
-    v = torch.matmul(x, p["wv"].to(cdt))
+    k = torch.matmul(src, p["wk"].to(cdt))
+    v = torch.matmul(src, p["wv"].to(cdt))
     if cfg.qkv_bias:
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
     q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    k = k.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    v = v.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if kind != "attn_nope":
+    if kind not in ("attn_nope", "cross"):
         q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k_pos = positions if kv_x is None else torch.arange(src.shape[1], device=src.device)
+        k = apply_rope(k, k_pos, cfg.rope_theta)
     return q, k, v
 
 
 def _attn_mask(cfg: ModelConfig, kind: str) -> MaskSpec:
+    if kind in ("attn_bidir", "cross"):
+        return MaskSpec("full")
     if kind == "attn_local":
         return MaskSpec("local", window=cfg.attn_window)
     if kind == "attn_chunked":
@@ -239,8 +248,8 @@ def _attn_mask(cfg: ModelConfig, kind: str) -> MaskSpec:
     return MaskSpec("causal")
 
 
-def _apply_attn(p, x, cfg: ModelConfig, kind: str, positions):
-    q, k, v = _qkv(p, x, cfg, kind, positions)
+def _apply_attn(p, x, cfg: ModelConfig, kind: str, positions, kv_x=None):
+    q, k, v = _qkv(p, x, cfg, kind, positions, kv_x)
     o = flash_attention(
         q, k, v, mask=_attn_mask(cfg, kind), impl=cfg.attn_impl,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k, skip=cfg.attn_skip,
@@ -372,13 +381,19 @@ def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
     labels = batch["labels"]
     if logits.shape[1] != labels.shape[1]:
         logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    ce = masked_ce(logits, labels)
+    loss = ce + aux["moe_aux_loss"] + aux["moe_z_loss"]
+    return loss, {"ce": ce, **aux}
+
+
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of logits [B, S, V] at labels [B, S] over the
+    labels ≥ 0 (−1 masks a position)."""
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
-    ce = torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
-    loss = ce + aux["moe_aux_loss"] + aux["moe_z_loss"]
-    return loss, {"ce": ce, **aux}
+    return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ---------------------------------------------------------------------------

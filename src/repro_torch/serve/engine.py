@@ -347,6 +347,12 @@ class Engine:
         host callable fn(rid, tokens, k) → proposals. `fault_injector`:
         the chaos source (default: one of `fault_rate` / `fault_seed` when
         the rate is above 0, else none)."""
+        if model_cfg.is_encdec:
+            raise NotImplementedError(
+                f"{model_cfg.name}: the engine serves decoder-only stacks. The reference's "
+                f"engine has no encoder-decoder path (its prefill_lm reads params['blocks'], "
+                f"which an encoder-decoder tree lacks), so the port adds none: decode with "
+                f"models.encdec (encode, fill_cross_cache, decode_step_encdec)")
         if serve_cfg.kv_layout not in ("contiguous", "paged"):
             raise ValueError(f"unknown kv_layout {serve_cfg.kv_layout!r}")
         if serve_cfg.step_mode not in ("sequential", "mixed"):
@@ -398,10 +404,13 @@ class Engine:
                           and packed_mixers_ok(model_cfg))
         self._rows_interact = rows_interact(model_cfg)  # MoE: dead slots feed the router
         # prefix reuse skips the shared positions' prefill steps, sound only
-        # when every mixer reads the paged cache alone; the radix prefix
-        # cache addresses pages by content on the same condition
+        # when every mixer reads the paged cache alone (global attention,
+        # `attn_bidir` decoded as global too); the radix prefix cache
+        # addresses pages by content on the same condition
         self._cache_on = (self._page_layout is not None and serve_cfg.prefix_sharing
-                          and packed_mixers_ok(model_cfg) and serve_cfg.prefix_cache)
+                          and all(m in ("attn", "attn_nope", "attn_bidir")
+                                  for m, _ in (*model_cfg.pattern, *model_cfg.remainder))
+                          and serve_cfg.prefix_cache)
         # engine-lifetime state: the allocator (radix tree included) and the
         # page pool, the contiguous caches by batch size, and their steps
         self._alloc: Optional[PagedKVAllocator] = None

@@ -76,8 +76,9 @@ class TrainState(NamedTuple):
 def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=None,
                      seed: int = 0, params: Optional[dict] = None) -> TrainState:
     """Fresh state: `params` as given (e.g. the reference's tree through the
-    bridge) or `init_lm` drawn from a torch.Generator seeded with `seed` on
-    `device` (default the card)."""
+    bridge) or the model's init (`init_lm`, or `init_encdec` for an
+    encoder-decoder stack) drawn from a torch.Generator seeded with `seed`
+    on `device` (default the card)."""
     if params is None:
         params = get_model(model_cfg).init(model_cfg, device=device, seed=seed)
     dev = tree_leaves(params)[0].device

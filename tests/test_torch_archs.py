@@ -84,16 +84,26 @@ def test_configs_are_the_reference_data(arch):
 
 
 def test_the_other_archs_still_raise():
-    """What is still refused: the encoder-decoder config, and in
-    `check_ported` an audio frontend and an encoder-decoder stack."""
-    for arch in ("seamless-m4t-medium",):
-        with pytest.raises(NotImplementedError, match="A12"):
-            get_smoke_config(arch)
-    seamless = bridge.config_from_reference(j_get_smoke_config("seamless-m4t-medium"))
+    """What is still refused: serving the encoder-decoder config (the
+    reference's engine has no encoder-decoder path) through `Engine` and
+    both launchers, and in `check_ported` a frontend or a layer kind outside
+    the reference's lists."""
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.serve import Engine, ServeConfig
+
+    seamless = get_smoke_config("seamless-m4t-medium")
+    assert seamless == bridge.config_from_reference(j_get_smoke_config("seamless-m4t-medium"))
+    params = get_model(seamless).init(seamless, device="cpu", seed=0)
+    with pytest.raises(NotImplementedError, match=r"prefill_lm reads params\['blocks'\]"):
+        Engine(params, seamless, ServeConfig(max_batch=2, max_len=32), device="cpu")
+    for launcher in (serve_launcher, train_launcher):
+        with pytest.raises(SystemExit, match="seamless-m4t-medium"):
+            launcher.main(["--arch", "seamless-m4t-medium", "--smoke", "--device", "cpu"])
     text = get_smoke_config("qwen3-0.6b")
-    for cfg in (seamless, dataclasses.replace(text, frontend="audio"),
-                dataclasses.replace(text, n_encoder_layers=2)):
-        with pytest.raises(NotImplementedError, match="A12"):
+    for cfg in (dataclasses.replace(text, frontend="speech"),
+                dataclasses.replace(text, pattern=(("attn_sparse", "swiglu"),))):
+        with pytest.raises(NotImplementedError, match="the port runs"):
             get_model(cfg)
 
 

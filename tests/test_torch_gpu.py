@@ -30,6 +30,7 @@ from repro_torch.kernels import flashd_decode as k2
 from repro_torch.kernels import flashd_fwd as k1
 from repro_torch.kernels import flashd_varlen as k4
 from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.models import encdec as ed
 from repro_torch.models.transformer import (
     apply_lm,
     decode_step_lm,
@@ -1060,6 +1061,89 @@ def test_train_step_kernel_path_matches_plain(cuda, impl):
     upd = sum(float(((b - c) ** 2).sum()) for b, c in zip(tree_leaves(sp.params),
                                                           tree_leaves(state0.params))) ** 0.5
     assert dev <= 1e-3 * upd, (dev, upd)
+
+
+def test_decode_kernel_every_row_at_full_length(cuda):
+    """K2 as cross attention reads it: cache_len equal to the buffer's
+    length T in every row (the encoder memory), G 1, at the seamless smoke
+    and full head dims (16, 64) and T 19 and 1024, f32 and bf16, the
+    card's own splits, against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    for b, h, d, t in ((2, 4, 16, 19), (4, 16, 64, 1024)):
+        q = torch.randn(b, h, d, generator=gen, device=cuda)
+        kc, vc = (torch.randn(b, t, h, d, generator=gen, device=cuda).transpose(1, 2)
+                  for _ in range(2))
+        cl = torch.full((b,), t, dtype=torch.int32, device=cuda)
+        n = k2.gpu_decode_splits(b, h, t, torch.cuda.get_device_properties(cuda)
+                                 .multi_processor_count)
+        for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+            x = (q.to(dtype), kc.to(dtype), vc.to(dtype))
+            o, lam = k2.flashd_decode(*x, cl, return_lam=True)
+            o_p, lam_p = k2.flashd_decode_plain(*x, cl, n_splits=n, return_lam=True)
+            _close(o, o_p, tol)
+            if dtype == torch.float32:
+                _close(lam, lam_p)
+
+
+def test_encdec_kernel_path_matches_plain(cuda):
+    """The seamless smoke stack (2 + 2 layers, d 16), f32, T 19 frames and S
+    12 tokens: the forward (K1: full, causal, and full at Sq ≠ Skv), one
+    train step on the K1 + K5 and K6 + K5 paths and 8 greedy decode steps
+    (K2 on the self and cross caches) against the plain path — logits
+    within 1e-4, loss and grad norm within 1e-5 relative, tokens equal —
+    with the kernels' launch counts per call."""
+    cfg = dataclasses.replace(get_smoke_config("seamless-m4t-medium"), dtype="float32")
+    plain = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    n_attn = cfg.n_encoder_layers + 2 * cfg.n_layers
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    params = ed.init_encdec(cfg, device=cuda, seed=0)
+    batch = {"frame_embeds": torch.randn(2, 19, cfg.d_model, generator=gen, device=cuda),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, device=cuda),
+             "labels": torch.randint(0, cfg.vocab_size, (2, 12), generator=gen, device=cuda)}
+    before = k1.launches
+    with torch.inference_mode():
+        lk, _ = ed.apply_encdec(params, batch, cfg)
+        lp, _ = ed.apply_encdec(params, batch, plain)
+    assert k1.launches - before == n_attn
+    _close(lk, lp, 1e-4)
+
+    tc = TrainConfig(warmup_steps=0)
+    state0 = init_train_state(cfg, tc, device=cuda, seed=0)
+    runs = {}
+    for route in ("flashd_gpu", "fa2_gpu", "flashd_plain"):
+        before = (k1.launches, k5.launches, k6.launches)
+        runs[route] = make_train_step(dataclasses.replace(cfg, attn_impl=route), tc)(state0,
+                                                                                     batch)[1]
+        launched = [a - b for a, b in zip((k1.launches, k5.launches, k6.launches), before)]
+        if route == "flashd_plain":
+            assert launched == [0, 0, 0]
+        else:  # remat 'full': the forward runs again in the backward
+            fwd = 0 if route == "flashd_gpu" else 2
+            assert launched[fwd] == 2 * n_attn and launched[1] == n_attn, (route, launched)
+    for route in ("flashd_gpu", "fa2_gpu"):
+        for key in ("loss", "grad_norm"):
+            want = float(runs["flashd_plain"][key])
+            assert abs(float(runs[route][key]) - want) <= 1e-5 * abs(want), (route, key)
+
+    toks, logits = {}, {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        with torch.inference_mode():
+            memory = ed.encode(params, batch["frame_embeds"], c)
+            cache = ed.fill_cross_cache(params, memory, ed.init_encdec_cache(2, 16, 4, c,
+                                                                              device=cuda), c)
+            tok = batch["tokens"][:, 0]
+            out, steps = [], []
+            for t in range(8):
+                before = k2.launches
+                lg, cache = ed.decode_step_encdec(params, cache, tok, torch.full((2,), t,
+                                                                                device=cuda), c)
+                assert k2.launches - before == (2 * cfg.n_layers if name == "kernel" else 0)
+                tok = lg[:, :cfg.vocab_size].argmax(-1)
+                out.append(tok)
+                steps.append(lg)
+        toks[name], logits[name] = torch.stack(out, 1), torch.stack(steps)
+    assert torch.equal(toks["kernel"], toks["plain"])
+    _close(logits["kernel"], logits["plain"], 1e-4)
 
 
 # ---- the serving steps as captured CUDA graphs ----

@@ -15,6 +15,7 @@ import torch
 
 from repro.configs import paper_llama as j_paper_llama
 from repro.configs import qwen3_0_6b as j_qwen3
+from repro.configs import seamless_m4t_medium as j_seamless
 from repro.models import get_model as j_get_model
 from repro.models import transformer as jtf
 from repro_torch import bridge
@@ -132,11 +133,13 @@ def test_bridge_round_trip_and_config_mapping():
 
 
 def test_port_configs_are_the_reference_data():
-    for name, jmod in (("qwen3-0.6b", j_qwen3), ("paper-llama", j_paper_llama)):
+    for name, jmod in (("qwen3-0.6b", j_qwen3), ("paper-llama", j_paper_llama),
+                       ("seamless-m4t-medium", j_seamless)):
         for tc, jc in ((get_config(name), jmod.CONFIG), (get_smoke_config(name), jmod.SMOKE)):
             assert tc == bridge.config_from_reference(jc)
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_config("seamless-m4t-medium")
+    # what is still refused: a name the reference does not know
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("seamless-m4t-large")
 
 
 def test_init_lm_tree_matches_reference_structure():
@@ -156,10 +159,10 @@ def test_init_lm_tree_matches_reference_structure():
 
 
 def test_unported_mixers_raise():
-    # the encoder's bidirectional mixer is still refused (A12 f)
-    bad = dataclasses.replace(j_qwen3.SMOKE, pattern=(("attn_bidir", "swiglu"),))
-    with pytest.raises(NotImplementedError, match="A12"):
-        ttf.init_lm(bridge.config_from_reference(bad), device="cpu")
+    # a mixer outside the reference's list is still refused
+    bad = dataclasses.replace(get_smoke_config("qwen3-0.6b"), pattern=(("attn_sparse", "swiglu"),))
+    with pytest.raises(NotImplementedError, match="not a layer kind of the reference"):
+        ttf.init_lm(bad, device="cpu")
     # a quantized pool (A8) needs the paged layout, as the reference's
     with pytest.raises(ValueError, match="requires layout='paged'"):
         ttf.init_decode_cache(1, 8, get_smoke_config("qwen3-0.6b"), kv_dtype="int8",

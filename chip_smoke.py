@@ -9,10 +9,12 @@ non-zero:
 
   1. the card's name and power limit (nvidia-smi);
   2. building the CUDA kernels from src/repro_torch/csrc with nvcc, one
-     process per source, all at once; per library the tensor-core (HGMMA,
-     HMMA) and FFMA instruction counts of its SASS (cuobjdump), asserting
-     that K1, K4, K5 and K6 run on the tensor cores; the registers and
-     spills of its head-dim-96 kernels;
+     process per translation unit, all at once (nvcc seconds per library);
+     per library the tensor-core (HGMMA, HMMA) and FFMA instruction counts
+     of its SASS (cuobjdump), asserting that K1, K4, K5 and K6 run on the
+     tensor cores; the registers and spills of its head-dim-96 and -256
+     kernels and of K2 / K3's group-8 instance (groups of 9–16 run it as
+     two CTAs);
   3. K1 `flashd_fwd` against `flashd_fwd_plain` at qwen3-0.6b widths
      (Hq 16, Hkv 8, d 128, Sq = Skv = 2048): four mask kinds, q_offset,
      skip on/off, fully masked rows; f32 and bf16; timed in both dtypes
@@ -50,11 +52,10 @@ non-zero:
      block_q 8 and 16, bf16 and int8; padding rows exactly 0; timed on the
      mixed-step pack and on the four-prompt pack (the tensor-core body);
   9. the paged and the mixed serving loops at full width, f32, on phase
-     5's weights and requests, the prefix cache on: kernel path captured
-     and the plain path, tokens identical to each other and to phase 5's
-     contiguous loop, K3 / K4 launched, the page allocator consistent;
-     captured = eager (tokens, launches, host syncs) on phase 5's short
-     workload; paged
+     5's weights and requests, the prefix cache on: kernel path captured,
+     tokens identical to phase 5's contiguous loop, K3 / K4 launched, the
+     page allocator consistent; captured = eager (tokens, launches, host
+     syncs) = the plain path's tokens on phase 5's short workload; paged
      decode step and packed step breakdowns, eager and captured; a
      shared-prefix workload (8 requests, a 256-token system prompt) with
      the cache on and off, captured: tokens identical, hits counted, and
@@ -73,8 +74,9 @@ non-zero:
      and the FA2 path (K6 + K5), loss and grad norm agreeing step by step;
      one bf16 step; tokens/s per step and a profile of one step;
  13. the lifecycle at full width and 2 layers: `train_resilient` with a
-     scheduled `grad_step` fault gives the clean run's loss curve bit for
-     bit, and the restored checkpoint serves the in-memory weights' tokens;
+     scheduled `grad_step` fault gives the clean run's loss curve (the same
+     steps, no checkpoint) bit for bit, and the restored checkpoint serves
+     the in-memory weights' tokens;
  15. the quantized pool (`kv_dtype` int8 and fp8) at full width, f32: phase
      9's requests through the paged and the mixed loops, captured (K3 / K4
      launched), and captured = eager (tokens, launches, host syncs, the
@@ -148,6 +150,22 @@ non-zero:
      K2 launches a step, decode logits against the forward, K2 against
      plain (and timed) on the self cache and the cross cache (cache_len T);
      an eager decode step's breakdown;
+ 21. two lines. recurrentgemma-9b at full width and depth (38 layers, d
+     4096, Hq 16 over Hkv 1 of head dim 256: a group of 16, local window
+     2048, vocab 256000), f32, seeded random weights (`_rgemma_phase`): K1
+     and K6 at its attention shape (B 1, S 4096, local 2048) against plain
+     in f32 and bf16, bitwise repeats, timed beside SDPA with the mask as a
+     boolean one and their bounds; K5 refusing head dim 256 by name with no
+     launch; the forward at S 4096 across the window, kernel against plain
+     logits at positions 2047 and 4095; 6 requests on the contiguous loop
+     (no global layer, so no pool), captured = eager = plain tokens, K2
+     launched; a captured decode step's breakdown; K2 on a 2048-slot ring
+     filled past a wrap against plain, timed. Then qwen3-moe-235b-a22b at
+     full width (Hq 64 over Hkv 4: G 16, 128 experts top-8), 2 of 94
+     layers (`_qwen3moe_phase`): 6 requests through the captured
+     contiguous, paged and mixed loops, kernel = plain tokens in each, K2,
+     K3 and K4 launched at G 16 and each held to plain (and timed) on the
+     served cache or pool;
  14. (last) the kernels line (JSON) and the total seconds, then the result
      line (JSON).
 
@@ -450,7 +468,7 @@ def _breakdown(label: str, step, steps: int = 10, train: bool = False, watch=())
     top = ", ".join(f"{name[:48]} {100 * us / total_us:.1f}%" for name, us in rows[:5])
     classes = {"FLASH-D/FA2 kernels": 0.0, "GEMM": 0.0, "other": 0.0}
     for name, us in rows:
-        if name.startswith("void (anonymous namespace)::"):  # csrc/*.cu
+        if name.startswith(("void (anonymous namespace)::", "void flashd::")):  # csrc/*.cu
             classes["FLASH-D/FA2 kernels"] += us
         elif "gemm" in name.lower() or "xmma" in name or "splitKreduce" in name:
             classes["GEMM"] += us
@@ -908,15 +926,16 @@ def _a12_phase(dev, card: str, flush):
 
 
 def _served_direct(layer: dict, q, n_sm: int, loop: str, reads, what: str, gen=None,
-                   flush=None):
+                   flush=None, local: bool = False):
     """One kernel on one layer of a served engine's cache, at the engine's
     shapes, against its plain version in the kernel's split order (outside
     the counted runs). q [B, Hq, d]; the layer's leaves carry the stacked
     layer axis.
 
       * contiguous: K2 on the layer's cache or ring, each row read at
-        position `reads[i]` over pos % len + 1 slots with no window or
-        chunk passed, as the decode step reads a ring;
+        position `reads[i]` over pos % len + 1 slots (a chunked ring; with
+        `local`, min(pos + 1, len) slots: a local-attention ring) with no
+        window or chunk passed, as the decode step reads a ring;
       * paged: K3 on the layer's pool through a block table over its pages,
         cache lengths `reads`;
       * mixed: K4 on the same kind of pool with a mixed step's pack (the
@@ -946,7 +965,7 @@ def _served_direct(layer: dict, q, n_sm: int, loop: str, reads, what: str, gen=N
         kc, vc = (layer[x][0].transpose(1, 2) for x in ("k", "v"))  # [B, Hkv, len, d]
         hkv, n = kc.shape[1], kc.shape[2]
         pos = torch.tensor(reads, device=dev)[:b]
-        eff = (pos % n + 1).to(torch.int32)
+        eff = (torch.clamp(pos + 1, max=n) if local else pos % n + 1).to(torch.int32)
         call = lambda: k2.flashd_decode(q, kc, vc, eff)
         plain = lambda: k2.flashd_decode_plain(q, kc, vc, eff,
                                                n_splits=k2.gpu_decode_splits(b, hkv, n, n_sm))
@@ -1055,15 +1074,18 @@ def _ptxas_hd(name: str, tag: str) -> str:
 
 
 def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv: int,
-                  mask: str, seed: int):
-    """K1, K6 and K5 at one attention shape ([B, H, S, d] views of
-    model-layout tensors, Sq query rows against Skv keys, the `mask` kind
-    'full', or 'causal' at Sq = Skv) against their plain versions: O and Λ within F32_TOL
-    in f32 (K6's O against K1's too), O within BF16_TOL in bf16; dQ, dK, dV
-    within GRAD_RTOL / GRAD_ATOL per entry in f32 and GRAD_BF16·max|grad| in
-    bf16. Each timed (CUDA events, L2 flushed) in both dtypes beside its
-    plain version (f32), one SDPA call in the same dtype (its backward for
-    K5) and its bounds. Returns ({kernel name: row}, report)."""
+                  mask: str, seed: int, window: int = 0, backward: bool = True):
+    """K1, K6 and (with `backward`) K5 at one attention shape ([B, H, S, d]
+    views of model-layout tensors, Sq query rows against Skv keys, the
+    `mask` kind 'full', or 'causal' or 'local' (of `window` keys) at Sq =
+    Skv) against their plain versions: O and Λ within F32_TOL in f32 (K6's
+    O against K1's too), O within BF16_TOL in bf16, a repeat call of K1 and
+    K6 bitwise equal; dQ, dK, dV within GRAD_RTOL / GRAD_ATOL per entry in
+    f32 and GRAD_BF16·max|grad| in bf16. Each timed (CUDA events, L2
+    flushed) in both dtypes beside its plain version (f32), one SDPA call in
+    the same dtype (its backward for K5; a local mask as a boolean one over
+    the kv heads repeated for the group) and its bounds. Returns ({kernel
+    name: row}, report)."""
     import torch
     import torch.nn.functional as F
 
@@ -1072,16 +1094,22 @@ def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv
     from repro_torch.kernels import flashd_bwd as k5
     from repro_torch.kernels import flashd_fwd as k1
 
-    causal = mask == "causal"
-    assert not causal or sq == skv, "SDPA's is_causal aligns a causal mask top-left"
+    causal, local = mask == "causal", mask == "local"
+    assert not (causal or local) or sq == skv, "SDPA's is_causal aligns a causal mask top-left"
     gen = torch.Generator(device=dev).manual_seed(seed)
-    spec = MaskSpec(mask)
+    spec = MaskSpec(mask, window=window)
     # q, k, v, dO as [B, H, S, d] views of model-layout tensors
     x32 = [torch.randn(b, s_, h, d, generator=gen, device=dev).transpose(1, 2)
            for s_, h in ((sq, hq), (skv, hkv), (skv, hkv), (sq, hq))]
-    pairs = b * (sq * (sq + 1) // 2 if causal else sq * skv)
-    shape = (f"B{b} Hq{hq} Hkv{hkv} d{d} Sq{sq} Skv{skv} {mask}, f32 (3xTF32 on the tensor "
-             f"cores) and bf16")
+    if local:  # row i sees min(i + 1, window) keys
+        w = min(window, sq)
+        pairs = b * (w * (w + 1) // 2 + (sq - w) * w)
+        at = torch.arange(sq, device=dev)
+        vis = (at[None] <= at[:, None]) & (at[:, None] - at[None] < window)
+    else:
+        pairs = b * (sq * (sq + 1) // 2 if causal else sq * skv)
+    shape = (f"B{b} Hq{hq} Hkv{hkv} d{d} Sq{sq} Skv{skv} {mask}"
+             f"{f' {window}' if local else ''}, f32 (3xTF32 on the tensor cores) and bf16")
     elems = 2 * b * sq * hq * d + 2 * b * skv * hkv * d  # q, O; k, v
     k5_elems = b * d * (4 * sq * hq + 4 * skv * hkv)  # q, O, dO, dQ; k, v, dK, dV
     ops = {"fwd": 4 * d * hq * pairs, "bwd": 10 * d * hq * pairs}
@@ -1090,10 +1118,11 @@ def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv
               "bwd": _attn_bounds(ops["bwd"], 4 * k5_elems + lam_bytes,
                                   2 * k5_elems + lam_bytes)}
     rows, report = {}, []
-    for name, kern, plain, kind in (
-            ("flashd_fwd", k1.flashd_fwd, k1.flashd_fwd_plain, "fwd"),
-            ("fa2_fwd", k6.fa2_fwd, k6.fa2_fwd_plain, "fwd"),
-            ("flashd_bwd", k5.flashd_bwd, k5.flashd_bwd_plain, "bwd")):
+    kernels = [("flashd_fwd", k1.flashd_fwd, k1.flashd_fwd_plain, "fwd"),
+               ("fa2_fwd", k6.fa2_fwd, k6.fa2_fwd_plain, "fwd")]
+    if backward:
+        kernels.append(("flashd_bwd", k5.flashd_bwd, k5.flashd_bwd_plain, "bwd"))
+    for name, kern, plain, kind in kernels:
         row = {}
         for dt, tag in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
             q, k, v, do = (x.to(dt) for x in x32)
@@ -1108,10 +1137,18 @@ def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv
                 else:
                     err = _err(o, o_p)
                     ok = err <= BF16_TOL
-                ok = ok and bool(torch.isfinite(o).all())
-                lib_x = tuple(x.contiguous() for x in args)
-                lib = lambda: F.scaled_dot_product_attention(*lib_x, is_causal=causal,
-                                                             enable_gqa=True)
+                o2, lam2 = kern(*args, mask=spec)
+                ok = ok and bool(torch.isfinite(o).all()) and torch.equal(o, o2) and torch.equal(
+                    lam, lam2)
+                del o2, lam2
+                if local:
+                    lib_x = (q.contiguous(), *(x.repeat_interleave(hq // hkv, dim=1).contiguous()
+                                               for x in (k, v)))
+                    lib = lambda: F.scaled_dot_product_attention(*lib_x, attn_mask=vis)
+                else:
+                    lib_x = tuple(x.contiguous() for x in args)
+                    lib = lambda: F.scaled_dot_product_attention(*lib_x, is_causal=causal,
+                                                                 enable_gqa=True)
             else:
                 args = (q, k, v, *k1.flashd_fwd_plain(q, k, v, mask=spec), do)
                 got, want = kern(*args, mask=spec), plain(*args, mask=spec)
@@ -1148,9 +1185,10 @@ def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv
             f"{row['library_ms']:.4f} / {row['bf16_library_ms']:.4f} ms; "
             + _fmt_bounds(bounds[kind], ops[kind], {"kernel f32": row["ms"],
                                                     "kernel bf16": row["bf16_ms"]}))
-    text = (f"K1, K6, K5 at {shape} against plain (bounds: f32 O, Λ {F32_TOL}, gradients rtol "
-            f"{GRAD_RTOL} atol {GRAD_ATOL}; bf16 O {BF16_TOL}, gradients {GRAD_BF16:.4f}"
-            f"·max|grad|): " + "; ".join(report))
+    text = (f"K1, K6{', K5' if backward else ''} at {shape} against plain (bounds: f32 O, Λ "
+            f"{F32_TOL}, gradients rtol {GRAD_RTOL} atol {GRAD_ATOL}; bf16 O {BF16_TOL}, "
+            f"gradients {GRAD_BF16:.4f}·max|grad|; forward repeats bitwise equal): "
+            + "; ".join(report))
     return rows, text
 
 
@@ -1659,6 +1697,274 @@ def _encdec_phase(dev, card: str, flush):
             + "; ".join(d_[1] for d_ in direct.values()) + f"; {bd}"), launched, rows
 
 
+RGEMMA_SEQ = 4096  # phase 21: K1 / K6's S and the forward's, two local windows of 2048
+RGEMMA_MEM_SHARE = 0.7  # its f32 weights' share of the card, beyond which whole periods are cut
+RGEMMA_RING_READS = (2100, 4095, 3000, 1500)  # K2 on a 2048-slot ring: three past a wrap
+QWEN3MOE_LAYERS = 2  # qwen3-moe-235b-a22b's depth cut (of 94): its full width fits the card
+
+
+def _serve_paths(params, cfg, sc, reqs, n_new: int, dev, paths):
+    """`serve` on fresh engines, one per (name, config, graphs) of `paths`,
+    the launch counters set to 0 just before each: {name: (tokens, seconds,
+    mean TTFT, launches, graphs captured, the engine)}. The caller drops
+    the engines it does not keep."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serve import Engine
+
+    runs = {}
+    for name, c, graphs in paths:
+        eng = Engine(params, c, sc, device=dev, graphs=graphs)
+        _zero_launches()
+        t = time.perf_counter()
+        out = eng.serve(reqs, n_new)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if eng._alloc is not None:
+            eng._alloc.check()
+        runs[name] = (out, dt, float(np.mean(list(eng.ttft.values()))), _launches(),
+                      eng._steps.captures, eng)
+    return runs
+
+
+def _rgemma_phase(dev, card: str, flush):
+    """Phase 21 (a): recurrentgemma-9b at full width (d 4096, Hq 16 over
+    Hkv 1 of head dim 256 — a group of 16 —, local window 2048, d_ff 12288,
+    vocab 256000, untied head) and depth (38 layers: 12 periods of rglru,
+    rglru, attn_local, and 2 rglru), f32, seeded random weights — whole
+    periods cut only if its weights would pass RGEMMA_MEM_SHARE of the card:
+
+      * K1 and K6 at its attention shape (B 1, S RGEMMA_SEQ, local 2048) in
+        f32 and bf16 against plain, repeats bitwise equal, timed beside one
+        SDPA call with the local mask as a boolean one, and their bounds
+        (`_attn_kernels`, no K5: its head dim 256 is not built);
+      * K5 at head dim 256 refuses with a ValueError naming the head dim,
+        and launches nothing;
+      * the forward at B 1 × S RGEMMA_SEQ (across the window), kernel path
+        against plain path: logits at the window's last position and at the
+        last position within LOGIT_TOL (never the [S, V] logits), one K1
+        launch per attention layer;
+      * serving 6 requests (prompts 32–128, 16 new, 4 slots) on the
+        contiguous loop — its only loop: no global layer, so no pool —
+        captured, the plain path and an eager kernel engine: tokens
+        identical, K2 launched; tok/s, TTFT, a captured decode step's
+        breakdown;
+      * K2 on a 2048-slot ring of an attention layer filled past a wrap
+        (B 4, positions RGEMMA_RING_READS read over min(pos + 1, 2048)
+        slots) against plain in the kernel's split order, timed
+        (`_served_direct`).
+
+    Returns (report, launches per kernel over the kernel-path runs,
+    {kernel: rgemma_* row})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flashd_bwd as k5
+    from repro_torch.models.layers import logits_from_hidden
+    from repro_torch.models.transformer import decode_step_lm, forward_hidden, init_decode_cache, init_lm
+    from repro_torch.serve import ServeConfig
+    from repro_torch.serve.graphs import StepGraphs
+    from repro_torch.tree import tree_leaves
+
+    full = dataclasses.replace(get_config("recurrentgemma-9b"), dtype="float32")
+    period = len(full.pattern)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    n_layers = full.n_layers
+    while (4 * dataclasses.replace(full, n_layers=n_layers).param_count()
+           > RGEMMA_MEM_SHARE * total and n_layers > period):
+        n_layers -= period
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    hq, hkv, d, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.attn_window
+    attn_rows, attn_text = _attn_kernels(dev, flush, b=1, hq=hq, hkv=hkv, d=d, sq=RGEMMA_SEQ,
+                                         skv=RGEMMA_SEQ, mask="local", window=win, seed=21,
+                                         backward=False)
+    rows = {kernel: {f"rgemma_d256_{key}": val for key, val in row.items()}
+            for kernel, row in attn_rows.items()}
+    x = torch.zeros(1, 2, 64, d, device=dev)
+    before = k5.launches
+    try:
+        k5.flashd_bwd(x, x[:, :1], x[:, :1], x, torch.zeros(1, 2, 64, device=dev), x)
+        raise AssertionError("K5 took head dim 256")
+    except ValueError as exc:
+        assert f"head dim {d}" in str(exc) and k5.launches == before, exc
+        k5_text = f"K5 at head dim {d}: ValueError '{exc}', no launch"
+    del x
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_lm(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    param_bytes = sum(x_.numel() * x_.element_size() for x_ in tree_leaves(params))
+    launched = dict.fromkeys(_launches(), 0)
+
+    def add(got):
+        for key in launched:
+            launched[key] += got[key]
+
+    n_attn = sum(m.startswith("attn") for m, _ in (*cfg.pattern * cfg.n_blocks, *cfg.remainder))
+    rng = np.random.default_rng(21)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, RGEMMA_SEQ)), device=dev)
+    at_rows = torch.tensor([win - 1, RGEMMA_SEQ - 1], device=dev)
+    fwd = {}
+    for name, c in (("kernel", cfg), ("plain", plain_cfg)):
+        _zero_launches()
+        with torch.inference_mode():
+            t = time.perf_counter()
+            h, _ = forward_hidden(params, {"tokens": toks}, c)
+            logits = logits_from_hidden(h[:, at_rows], params["lm_head"], cfg.vocab_size)[0]
+            torch.cuda.synchronize()
+            fwd[name] = (logits[:, :cfg.vocab_size], time.perf_counter() - t)
+        del h
+        got = _launches()
+        if name == "kernel":
+            assert got["flashd_fwd"] == n_attn, got
+            add(got)
+        else:
+            assert sum(got.values()) == 0, ("rgemma forward: the plain path launched a kernel", got)
+    logit_err = [_err(fwd["kernel"][0][i], fwd["plain"][0][i]) for i in range(2)]
+    assert max(logit_err) <= LOGIT_TOL, ("rgemma logits", logit_err)
+    fwd_text = (f"forward B1 S{RGEMMA_SEQ} kernel {fwd['kernel'][1]:.2f} s ({n_attn} K1 launches), "
+                f"plain {fwd['plain'][1]:.2f} s, max|Δlogit| at positions {at_rows.tolist()} "
+                f"{logit_err[0]:.2e} / {logit_err[1]:.2e} (bound {LOGIT_TOL}); peak "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated by here")
+    del fwd
+
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+            for n in (32, 57, 96, 128, 33, 40)]
+    n_new = 16
+    sc = ServeConfig(max_batch=4, max_len=256)
+    runs = _serve_paths(params, cfg, sc, reqs, n_new, dev,
+                        (("kernel", cfg, None), ("eager", cfg, False), ("plain", plain_cfg, None)))
+    (out, dt, ttft, got, graphs), plain = runs["kernel"][:5], runs["plain"][:5]
+    for other in ("eager", "plain"):
+        for a, b_ in zip(out, runs[other][0]):
+            assert np.array_equal(a, b_), f"rgemma: kernel and {other} tokens differ"
+    assert runs["eager"][3] == got and runs["eager"][4] == 0 < graphs, "captured vs eager"
+    assert sum(plain[3].values()) == 0, "rgemma: the plain path launched a kernel"
+    assert got["flashd_decode"] > 0 and got["flashd_decode_paged"] == got["flashd_varlen"] == 0, got
+    add(got)
+    del runs
+    n_tok = sum(map(len, out))
+    serve_text = (f"serving {len(reqs)} requests (prompts {[len(r) for r in reqs]}, {n_new} new, "
+                  f"max_batch 4, max_len 256, contiguous loop: no pool without a global layer): "
+                  f"tokens identical kernel captured = kernel eager = plain; captured "
+                  f"{n_tok / dt:.1f} tok/s (plain {n_tok / plain[1]:.1f}), mean TTFT "
+                  f"{ttft * 1e3:.1f} ms (plain {plain[2] * 1e3:.1f}), {graphs} graphs captured; "
+                  f"launches {got}")
+    cache = init_decode_cache(4, 256, cfg, device=dev)
+    tok4 = torch.zeros(4, dtype=torch.long, device=dev)
+    pos4 = torch.full((4,), 150, dtype=torch.long, device=dev)
+    steps, captured = StepGraphs(dev, graphs=True), {}
+    bd = _breakdown("captured decode step B4 pos150",
+                    lambda: steps.run(captured, "decode",
+                                      lambda: decode_step_lm(params, cache, tok4, pos4, cfg)),
+                    watch=("decode_kernel",))
+    del steps, captured, cache, params
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    # K2 on a ring of `win` slots filled past a wrap: every slot written
+    gen = torch.Generator(device=dev).manual_seed(211)
+    ring = {x_: torch.randn(1, 4, win, hkv, d, generator=gen, device=dev) for x_ in ("k", "v")}
+    qd = torch.randn(4, hq, d, generator=gen, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.inference_mode():
+        _, ring_text, ring_row = _served_direct(
+            ring, qd, n_sm, "contiguous", RGEMMA_RING_READS,
+            f"a {win}-slot local-attention ring filled past a wrap", flush=flush, local=True)
+    rows["flashd_decode"] = {f"rgemma_ring_{key}": val for key, val in ring_row.items()}
+    del ring
+    depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers else
+             f"{cfg.n_layers} of {full.n_layers} layers (whole periods cut: the f32 weights "
+             f"would pass {RGEMMA_MEM_SHARE} of the card's {total / 1e9:.1f} GB)")
+    text = (f"recurrentgemma-9b f32 full width (d {cfg.d_model}, Hq {hq} / Hkv {hkv} of head dim "
+            f"{d}, window {win}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {depth}, "
+            f"{param_bytes / 1e9:.2f} GB of parameters (init {init_s:.1f} s), peak "
+            f"{peak / 1e9:.2f} GB allocated, on {card}: {attn_text}; {k5_text}; {fwd_text}; "
+            f"{serve_text}; {bd}; {ring_text}")
+    return text, launched, rows
+
+
+def _qwen3moe_phase(dev, card: str, flush):
+    """Phase 21 (b): qwen3-moe-235b-a22b at full width (d 4096, Hq 64 over
+    Hkv 4 of head dim 128 — a group of 16 —, 128 experts of d_ff 1536 top-8,
+    qk-norm, vocab 151936), cut to QWEN3MOE_LAYERS of its 94 layers (the
+    whole model, 235 B parameters, fits no card), f32, seeded random
+    weights: 6 requests (prompts 32–128, 16 new, 4 slots) through the
+    captured contiguous, paged and mixed loops on the kernel path and the
+    plain path — tokens identical within each loop; K2 (contiguous), K3
+    (paged) and K4 (mixed) launched at G 16 — and each held to plain (and
+    timed) on the served engine's cache, pool or a pack over its pool
+    (`_served_direct`). Returns (report, launches per kernel over the
+    kernel-path runs, {kernel: qwen3moe_g16_* row})."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import ServeConfig
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=QWEN3MOE_LAYERS,
+                              dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg, device=dev, seed=0)
+    param_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    launched = dict.fromkeys(_launches(), 0)
+    rng = np.random.default_rng(212)
+    gen = torch.Generator(device=dev).manual_seed(212)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+            for n in (32, 57, 96, 128, 33, 40)]
+    n_new = 16
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    qd = torch.randn(4, cfg.n_heads, cfg.head_dim_, generator=gen, device=dev)
+    loops = {"contiguous": ({}, "flashd_decode", (150, 0, 255, 76), "the first layer's cache"),
+             "paged": (dict(kv_layout="paged"), "flashd_decode_paged", (150, 1, 256, 77),
+                       "the first layer's pool"),
+             "mixed": (dict(step_mode="mixed"), "flashd_varlen", (150, 221, 100),
+                       "the first layer's pool")}
+    report, direct, rows = [], [], {}
+    for loop, (kw, kernel, reads, what) in loops.items():
+        sc = ServeConfig(max_batch=4, max_len=256, **kw)
+        runs = _serve_paths(params, cfg, sc, reqs, n_new, dev,
+                            (("kernel", cfg, None), ("plain", plain_cfg, None)))
+        (out, dt, ttft, got, graphs, eng), plain = runs["kernel"], runs["plain"][:5]
+        for a, b_ in zip(out, plain[0]):
+            assert np.array_equal(a, b_), f"qwen3-moe {loop}: kernel and plain tokens differ"
+        assert sum(plain[3].values()) == 0, f"qwen3-moe {loop}: the plain path launched a kernel"
+        assert got[kernel] > 0, (loop, got)
+        for key in launched:
+            launched[key] += got[key]
+        layer = (eng._contig[4] if loop == "contiguous" else eng._paged).cache["blocks"]["pos0"]
+        with torch.inference_mode():
+            _, text, row = _served_direct(layer, qd, n_sm, loop, reads, what, gen=gen,
+                                          flush=flush)
+        del runs, eng, layer
+        direct.append(text)
+        rows[kernel] = {f"qwen3moe_g16_{key}": val for key, val in row.items()}
+        n_tok = sum(map(len, out))
+        report.append(f"{loop}: tokens identical kernel = plain; {n_tok / dt:.1f} tok/s (plain "
+                      f"{n_tok / plain[1]:.1f}), mean TTFT {ttft * 1e3:.1f} ms (plain "
+                      f"{plain[2] * 1e3:.1f}), {graphs} graphs captured; launches {got}")
+    del params
+    peak = torch.cuda.max_memory_allocated()
+    text = (f"qwen3-moe-235b-a22b f32 full width (d {cfg.d_model}, Hq {cfg.n_heads} / Hkv "
+            f"{cfg.n_kv_heads} of head dim {cfg.head_dim_}: G {cfg.n_heads // cfg.n_kv_heads}, "
+            f"{cfg.n_experts} experts top-{cfg.n_experts_active}, vocab {cfg.vocab_size}), "
+            f"{cfg.n_layers} of 94 layers, {param_bytes / 1e9:.2f} GB of parameters, peak "
+            f"{peak / 1e9:.2f} GB allocated, on {card}: serving {len(reqs)} requests (prompts "
+            f"{[len(r) for r in reqs]}, {n_new} new, max_batch 4, max_len 256, captured): "
+            f"{'; '.join(report)}; " + "; ".join(direct))
+    return text, launched, rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1726,14 +2032,18 @@ def main() -> int:
     secs = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = "; ".join(f"{n}: " + _build.ptxas_report(n).replace("\n", " | ") for n in _build.SOURCES)
-    ptxas_96 = "; ".join(f"{n}: {_ptxas_hd(n, 'Li96E')}" for n in _build.SOURCES)
+    ptxas_hd = "; ".join(f"{n}: d96 {_ptxas_hd(n, 'Li96E')}, d256 {_ptxas_hd(n, 'Li256E')}"
+                         for n in _build.SOURCES)
+    # groups of 9–16 run the group-8 instance (two CTAs): its registers at d 128 and 256
+    ptxas_g8 = "; ".join(f"d{hd} {_ptxas_hd('flashd_decode', f'Li{hd}ELi8E')}" for hd in (128, 256))
     cuobjdump = _cuobjdump(_build.nvcc())
     sass = _sass_counts(cuobjdump, {n: str(_build.lib_path(n)) for n in _build.SOURCES})
     for n in TC_KERNELS:
         assert sass[n]["HGMMA"] + sass[n]["HMMA"] > 0, ("no tensor-core instruction", n, sass[n])
-    _line(2, f"built {sorted(secs)} in {build_s:.1f} s (per source {secs}); SASS instruction "
-             f"counts (cuobjdump -sass) {sass}; head dim 96 (ptxas): {ptxas_96}; ptxas: {ptxas} "
-             f"{ph}")
+    _line(2, f"built {sorted(secs)} in {build_s:.1f} s (nvcc seconds per library, its "
+             f"translation units at once: {', '.join(f'{n} {t:.1f}' for n, t in secs.items())}); "
+             f"SASS instruction counts (cuobjdump -sass) {sass}; head dims 96 and 256 (ptxas): "
+             f"{ptxas_hd}; K2 / K3's group-8 instance (G 5–16): {ptxas_g8}; ptxas: {ptxas} {ph}")
 
     # ---- 3. K1 against its plain version ----
     ph = _Phase()
@@ -2261,20 +2571,25 @@ def main() -> int:
         oracle = {g: _oracle(Engine(params, cfg, psc, device=dev, graphs=g), None, short)
                   for g in (None, False)}
         oracle_text = _check_oracle(mode, oracle)
+        # the plain path (captured) on the oracle's short workload: the kernel
+        # path's tokens there, and no launch
         seen = counts()
-        out["plain"] = pool_serve(Engine(params, plain_cfg, psc, device=dev), reqs)
+        plain_short = _oracle(Engine(params, plain_cfg, psc, device=dev), None, short)
         assert counts() == seen, f"{mode}: the plain path launched a kernel"
+        for a, c in zip(oracle[None]["toks"], plain_short["toks"]):
+            assert np.array_equal(a, c), f"{mode}: kernel and plain tokens differ"
         k = out["captured"]
         pool_tps[mode] = n_serve / k["s"]
-        for a, c, d_ in zip(k["toks"], out["plain"]["toks"], kern["serve"]):
-            assert np.array_equal(a, c), f"{mode}: kernel and plain tokens differ"
+        for a, d_ in zip(k["toks"], kern["serve"]):
             assert np.array_equal(a, d_), f"{mode}: tokens differ from the contiguous loop"
         st = k["stats"]
+        n_short = sum(map(len, plain_short["toks"]))
         pool_report.append(
-            f"{mode}: tokens identical (captured = plain = contiguous); captured "
-            f"({k['captures']} graphs, {k['capture_s']:.2f} s of warm-up runs and captures "
-            f"included) {n_serve / k['s']:.1f} tok/s, mean TTFT "
-            f"{k['ttft'] * 1e3:.1f} ms; plain (captured) {n_serve / out['plain']['s']:.1f} tok/s; "
+            f"{mode}: tokens identical (captured = contiguous; kernel = plain on the short "
+            f"workload); captured ({k['captures']} graphs, {k['capture_s']:.2f} s of warm-up "
+            f"runs and captures included) {n_serve / k['s']:.1f} tok/s, mean TTFT "
+            f"{k['ttft'] * 1e3:.1f} ms; plain (captured, the short workload, fresh engine) "
+            f"{n_short / plain_short['s']:.1f} tok/s; "
             f"K3/K4 launches {k['launched'][1:]}, host syncs {k['syncs']}; "
             f"{oracle_text}; pool {st['kv_pool_bytes']} B "
             f"({st['kv_bytes_per_token']:.0f} B/token, {st['kv_dtype']}), preemptions "
@@ -2578,18 +2893,23 @@ def main() -> int:
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(HERE, "build"))
     try:
-        kw = dict(model_cfg=lcfg, train_cfg=ltc, data=ldata, total_steps=n_life, device=dev)
-        # the clean run writes its final checkpoint only; the faulted one restores from
-        # the checkpoint before its fault and replays from there
-        clean, clean_hist, ctr0 = train_resilient(
-            ckpt_dir=os.path.join(root, "clean"), **kw,
-            res=ResilienceConfig(ckpt_every=n_life, keep_checkpoints=1))
+        # the clean run: the same steps with no checkpoint (train_resilient's fault-free
+        # path runs them so, and would only add a final checkpoint); the faulted run
+        # restores from the checkpoint before its fault and replays from there
+        clean = init_train_state(lcfg, ltc, device=dev, seed=0)
+        clean_step, clean_curve = make_train_step(lcfg, ltc), []
+        for i in range(n_life):
+            clean, cm = clean_step(clean, {k_: torch.as_tensor(x, device=dev)
+                                           for k_, x in ldata.batch(i).items()})
+            clean_curve.append(float(cm["loss"]))
+        del clean_step, cm
         inj = FaultInjector(schedule=[("grad_step", fault_at)])
         got, hist, ctr = train_resilient(
-            ckpt_dir=os.path.join(root, "faulted"), injector=inj, **kw,
+            ckpt_dir=os.path.join(root, "faulted"), injector=inj, model_cfg=lcfg, train_cfg=ltc,
+            data=ldata, total_steps=n_life, device=dev,
             res=ResilienceConfig(ckpt_every=every, keep_checkpoints=1))
-        assert ctr0["restarts"] == 0 and ctr["restarts"] == 1 and ctr["faults"] == 1, ctr
-        clean_curve, got_curve = [h["loss"] for h in clean_hist], [h["loss"] for h in hist]
+        assert ctr["restarts"] == 1 and ctr["faults"] == 1, ctr
+        got_curve = [h["loss"] for h in hist]
         assert got_curve == clean_curve, ("resume is not bitwise", got_curve, clean_curve)
         assert all(torch.equal(a, b_) for a, b_ in zip(tree_leaves(clean), tree_leaves(got))), \
             "the resumed run's final state differs"
@@ -2946,6 +3266,16 @@ def main() -> int:
     ed_text, ed_launches, ed_rows = _encdec_phase(dev, card, flush)
     _line(20, f"{ed_text} {ph}")
 
+    # ---- 21. head dim 256 and groups of 16: recurrentgemma-9b, qwen3-moe-235b-a22b ----
+    ph = _Phase()
+    gc.collect()
+    rg_text, rg_launches, rg_rows = _rgemma_phase(dev, card, flush)
+    _line(21, f"{rg_text} {ph}")
+    ph = _Phase()
+    gc.collect()
+    qm_text, qm_launches, qm_rows = _qwen3moe_phase(dev, card, flush)
+    _line(21, f"{qm_text} {ph}")
+
     # ---- 14. kernels line, result line ----
     kernels = [
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
@@ -3048,6 +3378,14 @@ def main() -> int:
     for row in kernels:
         row["seamless_launches"] = ed_launches[row["name"]]
         row.update(ed_rows.get(row["name"], {}))
+    # phase 21: recurrentgemma-9b's main path (forward, contiguous loop) at head
+    # dim 256 and G 16, qwen3-moe-235b-a22b's three loops at G 16; K1 / K6 / K2
+    # at the first's shapes, K2 / K3 / K4 on the second's cache and pools
+    for row in kernels:
+        row["rgemma_launches"] = rg_launches[row["name"]]
+        row["qwen3moe_launches"] = qm_launches[row["name"]]
+        row.update(rg_rows.get(row["name"], {}))
+        row.update(qm_rows.get(row["name"], {}))
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}; all phases "
               f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

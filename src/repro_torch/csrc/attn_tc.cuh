@@ -23,8 +23,17 @@
 // live tile's copy is in flight while the current one computes. Q is copied
 // once per CTA. Rows are padded by 16 bytes in shared memory, which keeps
 // ldmatrix (bf16) and the 32-bit fragment reads (f32) free of bank
-// conflicts for every head dim (16, 32, 48, 64, 96, 128). Rows past Sq / Skv are
-// zero-filled by the copy (src-size 0).
+// conflicts for every head dim (16, 32, 48, 64, 96, 128, 256). Rows past Sq / Skv are
+// zero-filled by the copy (src-size 0). Where Q and two stages exceed the
+// 227 KB a block may hold (f32 at head dim 256: 332,800 B), the ring has
+// one stage (199,680 B): the next tile is copied once every warp is done
+// with this one, and nothing overlaps the copy but the other CTAs' work.
+//
+// Head dim 256 (recurrentgemma-9b) doubles O's accumulator to 128
+// registers a thread. bf16 then reads Q's A fragments from shared memory
+// per k step instead of holding them (64 more registers); f32 adds P·V's
+// fresh partial in passes of 64 columns (32 registers, P split again each
+// pass), where up to head dim 128 one pass takes every column.
 //
 // Products (mma.sync, f32 accumulation):
 //   bf16  m16n8k16: Q and K fragments by ldmatrix, V by ldmatrix.trans; P
@@ -65,6 +74,7 @@ constexpr int BKP = 64;  // keys per physical KV tile (≥ block_k)
 constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int NJ = BKP / 8;  // n8 score blocks per tile
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory a block may opt into (227 KB)
 static_assert(BQ == NWARPS * 16, "one 16-row mma M per warp");
 static_assert(BQ == BKP, "Q and K/V tiles share one shared-memory layout");
 
@@ -86,14 +96,15 @@ struct Args {
   float skip_thr;  // θ + ln(block_k)
 };
 
-// shared memory: sQ, then K and V of stage 0, then of stage 1
+// shared memory: sQ, then K and V of stage 0, then of stage 1 (STAGES 2)
 template <typename T, int HD>
 struct Layout {
   static constexpr int CHUNK = 16 / (int)sizeof(T);  // elements per 16-byte copy
   static constexpr int LD = HD + CHUNK;              // padded row, elements
   static constexpr int CPR = HD / CHUNK;             // copies per row
   static constexpr int TILE = BKP * LD;
-  static constexpr size_t BYTES = sizeof(T) * 5 * TILE;
+  static constexpr int STAGES = sizeof(T) * 5 * TILE <= MAX_SMEM ? 2 : 1;
+  static constexpr size_t BYTES = sizeof(T) * (1 + 2 * STAGES) * TILE;
   static_assert(HD % 16 == 0, "head dim");
 };
 
@@ -182,12 +193,16 @@ struct Products;
 template <int HD>
 struct Products<__nv_bfloat16, HD> {
   using L = Layout<__nv_bfloat16, HD>;
-  uint32_t qf[HD / 16][4];  // Q's A fragments, loaded once
+  static constexpr bool Q_IN_REGS = HD <= 128;  // else read per k step
+  uint32_t qf[Q_IN_REGS ? HD / 16 : 1][4];      // Q's A fragments, loaded once
+  const __nv_bfloat16* qp = nullptr;            // this lane's ldmatrix row of sQ
 
   __device__ __forceinline__ void load_q(const __nv_bfloat16* sQ, int r0, int lane) {
-    const __nv_bfloat16* p = sQ + (r0 + (lane & 15)) * L::LD + (lane >> 4) * 8;
+    qp = sQ + (r0 + (lane & 15)) * L::LD + (lane >> 4) * 8;
+    if constexpr (Q_IN_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qf[kk], p + kk * 16);
+      for (int kk = 0; kk < HD / 16; ++kk) ldsm_x4(qf[kk], qp + kk * 16);
+    }
   }
 
   __device__ __forceinline__ void scores(float (&s)[NJ][4], const __nv_bfloat16*,
@@ -197,12 +212,19 @@ struct Products<__nv_bfloat16, HD> {
         sK + ((lane & 7) + ((lane >> 4) << 3)) * L::LD + ((lane >> 3) & 1) * 8;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[kk][i];
+      } else {
+        ldsm_x4(a, qp + kk * 16);
+      }
 #pragma unroll
       for (int jp = 0; jp < NJ / 2; ++jp) {
         uint32_t b[4];
         ldsm_x4(b, p + jp * 16 * L::LD + kk * 16);
-        mma_bf16(s[2 * jp], qf[kk], b[0], b[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[2 * jp], a, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
       }
     }
   }
@@ -261,34 +283,40 @@ struct Products<float, HD> {
     }
   }
 
-  // this tile's P·V goes into a fresh partial, added to o in f32
+  // this tile's P·V goes into a fresh partial, added to o in f32; NB n8
+  // column blocks a pass (every column up to head dim 128, 64 columns at 256)
+  static constexpr int NB = HD <= 128 ? HD / 8 : 8;
+
   __device__ __forceinline__ void pv(float (&o)[HD / 8][4], const float (&p)[NJ][4],
                                      const float* sV, int lane) const {
     const int g = lane >> 2, t = lane & 3;
     const float* vb = sV + 2 * t * L::LD + g;
-    float part[HD / 8][4];
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
+    for (int n0 = 0; n0 < HD / 8; n0 += NB) {  // unrolled: o's indices stay static
+      float part[NB][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {  // keys 8j … 8j + 7; logical k t ↔ key 2t, t + 4 ↔ 2t + 1
-      uint32_t ah[4], al[4];
-      split_tf32(p[j][0], ah[0], al[0]);  // (g, key 2t)
-      split_tf32(p[j][2], ah[1], al[1]);  // (g + 8, key 2t)
-      split_tf32(p[j][1], ah[2], al[2]);  // (g, key 2t + 1)
-      split_tf32(p[j][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+      for (int n = 0; n < NB; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.0f;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        const float* v = vb + 8 * j * L::LD + 8 * n;
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(v[0], bh0, bl0);      // V[8j + 2t][8n + g]
-        split_tf32(v[L::LD], bh1, bl1);  // V[8j + 2t + 1][8n + g]
-        mma_3xtf32(part[n], ah, al, bh0, bh1, bl0, bl1);
+      for (int j = 0; j < NJ; ++j) {  // keys 8j … 8j + 7; logical k t ↔ key 2t, t + 4 ↔ 2t + 1
+        uint32_t ah[4], al[4];
+        split_tf32(p[j][0], ah[0], al[0]);  // (g, key 2t)
+        split_tf32(p[j][2], ah[1], al[1]);  // (g + 8, key 2t)
+        split_tf32(p[j][1], ah[2], al[2]);  // (g, key 2t + 1)
+        split_tf32(p[j][3], ah[3], al[3]);  // (g + 8, key 2t + 1)
+#pragma unroll
+        for (int n = 0; n < NB; ++n) {
+          const float* v = vb + 8 * j * L::LD + 8 * (n0 + n);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(v[0], bh0, bl0);      // V[8j + 2t][8n + g]
+          split_tf32(v[L::LD], bh1, bl1);  // V[8j + 2t + 1][8n + g]
+          mma_3xtf32(part[n], ah, al, bh0, bh1, bl0, bl1);
+        }
       }
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n0 + n][e] += part[n][e];
     }
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] += part[n][e];
   }
 };
 
@@ -382,9 +410,9 @@ __device__ __forceinline__ void tile_machine(const Args& a, unsigned char* smem)
   Carry row[2];
   const long long q_lo = (long long)q0 + a.mask.q_offset;
 
-  for (int step = 0, st = 0; ik < n_k; ++step, st ^= 1) {
+  for (int step = 0, st = 0; ik < n_k; ++step, st = (st + 1) % L::STAGES) {
     const int nxt = next_live(a.mask, iq, ik, n_k, bk);
-    if (nxt < n_k) {
+    if (L::STAGES == 2 && nxt < n_k) {
       T* dst = sK0 + 2 * (st ^ 1) * L::TILE;
       load_tile<T, HD>(dst, kb, a.k_ss, nxt * bk, a.Skv, tid);
       load_tile<T, HD>(dst + L::TILE, vb, a.v_ss, nxt * bk, a.Skv, tid);
@@ -450,6 +478,13 @@ __device__ __forceinline__ void tile_machine(const Args& a, unsigned char* smem)
       mm.pv(acc, s, sV, lane);
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
+    if (L::STAGES == 1) {  // one stage: the next tile's copy starts only now
+      if (nxt < n_k) {
+        load_tile<T, HD>(sK0, kb, a.k_ss, nxt * bk, a.Skv, tid);
+        load_tile<T, HD>(sK0 + L::TILE, vb, a.v_ss, nxt * bk, a.Skv, tid);
+      }
+      cp_async_commit();  // the next step's wait<1> passes its own empty group
+    }
     ik = nxt;
   }
   cp_async_wait<0>();

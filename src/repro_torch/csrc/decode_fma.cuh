@@ -18,8 +18,9 @@
 //     issued at once (a 2-stage ring of `rows`-row chunks when the run is
 //     longer than one chunk), so a CTA's whole run is in flight;
 //   - scores: a row of d elements is LPR lanes × 16 bytes of q (4 f32 or 8
-//     bf16 a lane; the K row's matching VEC elements, 4 or 8 bytes of an
-//     byte pool), RPW = 32/LPR rows per warp at a time, each dot product
+//     bf16 a lane; 32 bytes, 8 f32, where 16-byte chunks would need more
+//     than a warp: f32 at head dim 256; the K row's matching VEC elements,
+//     4 or 8 bytes of a byte pool), RPW = 32/LPR rows per warp at a time, each dot product
 //     reduced by shuffles over its row's lanes and read once for all GC
 //     query rows; P·V: the same rows per warp, VEC columns a lane into
 //     GC×VEC registers, summed over the warp's rows by shuffles and over the
@@ -42,12 +43,17 @@ constexpr int NWARPS = 4;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MERGE_CH = 64;  // splits whose blend weights K2 / K3's merge holds at once
 
-// a row of HD elements as VEC-element chunks (16 bytes of q): LPR lanes to
-// a row (a power of two ≥ the chunk count; lanes past it idle), RPW rows to
-// a warp
+// the rows a chunk stages at most: 64, or 32 at head dim 256, where two
+// stages of 64 f32 K and V rows alone would take 256 KB
+__host__ __device__ constexpr int max_rows(int hd) { return hd > 128 ? 32 : 64; }
+
+// a row of HD elements as VEC-element chunks (16 bytes of q, or 32 where a
+// row has more than 32 chunks of 16): LPR lanes to a row (a power of two ≥
+// the chunk count; lanes past it idle), RPW rows to a warp
 template <typename TQ, int HD>
 struct Geo {
-  static constexpr int VEC = 16 / (int)sizeof(TQ);
+  static constexpr int CH = 16 / (int)sizeof(TQ);
+  static constexpr int VEC = HD / CH > 32 ? 2 * CH : CH;
   static constexpr int NCH = HD / VEC;
   static constexpr int LPR = NCH <= 4 ? 4 : NCH <= 8 ? 8 : NCH <= 16 ? 16 : 32;
   static constexpr int RPW = 32 / LPR;
@@ -83,6 +89,16 @@ __device__ __forceinline__ void load_vec(const float* p, float (&f)[4]) {
 }
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&f)[8]) {
   unpack16(*reinterpret_cast<const uint4*>(p), f);
+}
+__device__ __forceinline__ void load_vec(const float* p, float (&f)[8]) {  // 32 bytes
+  const uint4 u[2] = {*reinterpret_cast<const uint4*>(p), *reinterpret_cast<const uint4*>(p + 4)};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    f[4 * i] = __uint_as_float(u[i].x);
+    f[4 * i + 1] = __uint_as_float(u[i].y);
+    f[4 * i + 2] = __uint_as_float(u[i].z);
+    f[4 * i + 3] = __uint_as_float(u[i].w);
+  }
 }
 __device__ __forceinline__ void char4_to(const char4 c, float* f) {
   f[0] = (float)c.x;  // .x holds the lowest address
@@ -228,7 +244,7 @@ __device__ __forceinline__ void split_partial(unsigned char* smem, int G, int ro
 #pragma unroll
   for (int g = 0; g < GC; ++g) {
     if (g < G && lane_on) {
-      unpack16(*reinterpret_cast<const uint4*>(qrow(g) + c * VEC), qr[g]);
+      load_vec(qrow(g) + c * VEC, qr[g]);
     } else {
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qr[g][e] = 0.0f;

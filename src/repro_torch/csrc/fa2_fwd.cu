@@ -66,6 +66,7 @@ cudaError_t dispatch_hd(int hd, const tc::Args& a, cudaStream_t stream) {
     case 64: return tc::launch<T, 64>(fa2_fwd_kernel<T, 64>, a, stream);
     case 96: return tc::launch<T, 96>(fa2_fwd_kernel<T, 96>, a, stream);
     case 128: return tc::launch<T, 128>(fa2_fwd_kernel<T, 128>, a, stream);
+    case 256: return tc::launch<T, 256>(fa2_fwd_kernel<T, 256>, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

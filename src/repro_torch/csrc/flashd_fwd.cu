@@ -36,7 +36,10 @@
 // Occupancy at d 128 (ptxas -v on sm_90a; shared memory is 5 tiles of 64
 // padded rows: Q and two stages of K and V): bf16 209 registers and 87,040
 // B — two CTAs (8 warps) an SM; f32 223 registers and 168,960 B — one CTA
-// (4 warps) an SM, bound by shared memory.
+// (4 warps) an SM, bound by shared memory. At d 256 (recurrentgemma-9b):
+// bf16 250 registers (Q read per k step) and 168,960 B; f32 255 registers
+// with 48 B of spill stores (P·V in passes of 64 columns) and 199,680 B,
+// its ring one stage deep — one CTA an SM either way.
 #include "attn_tc.cuh"
 
 using namespace flashd;
@@ -93,6 +96,7 @@ cudaError_t dispatch_hd(int hd, const tc::Args& a, cudaStream_t stream) {
     case 64: return tc::launch<T, 64>(flashd_fwd_kernel<T, 64>, a, stream);
     case 96: return tc::launch<T, 96>(flashd_fwd_kernel<T, 96>, a, stream);
     case 128: return tc::launch<T, 128>(flashd_fwd_kernel<T, 128>, a, stream);
+    case 256: return tc::launch<T, 256>(flashd_fwd_kernel<T, 256>, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

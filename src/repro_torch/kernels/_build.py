@@ -1,19 +1,23 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc + ctypes.
 
-Each source becomes its own shared library with a plain C interface:
+Each kernel family becomes its own shared library with a plain C
+interface, from one translation unit or several (`UNITS`: K2 / K3's and
+K4's head dims are split over units so that nvcc compiles them in
+parallel). Each unit is compiled on its own, then the library is linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -Xptxas -v -c -o build/kernels/<name>-<hash>.<unit>.o csrc/<unit>.cu
+    nvcc -shared -o build/kernels/<name>-<hash>.so build/kernels/<name>-<hash>.*.o
 
-The file name carries a hash of the source, the shared header and the
+The file name carries a hash of the units, the shared headers and the
 flags, so an edited source rebuilds and an unchanged one is reused. The
 build directory (`build/` at the repository root) is listed in
 `.gitignore`. `torch.utils.cpp_extension.load` is not used: a source that
 includes PyTorch's headers takes minutes to compile, a plain C one seconds.
 
 Nothing here runs at import time: a library is built on the first launch
-of its kernel (or by `build(...)`, which starts every missing nvcc at once
-so the sources compile in parallel). There is no fallback: a failed build
+of its kernel (or by `build(...)`, which starts every missing unit's nvcc
+at once so they compile in parallel). There is no fallback: a failed build
 raises with nvcc's output.
 """
 
@@ -29,14 +33,22 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = [
-    "SOURCES", "NVCC_FLAGS", "build", "load", "build_dir", "lib_path", "nvcc", "ptxas_report",
+    "SOURCES", "UNITS", "NVCC_FLAGS", "build", "load", "build_dir", "lib_path", "nvcc",
+    "ptxas_report",
 ]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flashd_fwd", "flashd_decode", "flashd_varlen", "flashd_bwd", "fa2_fwd")
+# the translation units of a library (csrc/<unit>.cu), where there is more than one
+UNITS = {
+    "flashd_decode": ("flashd_decode", "flashd_decode_hd64", "flashd_decode_hd128",
+                      "flashd_decode_hd256"),
+    "flashd_varlen": ("flashd_varlen", "flashd_varlen_hd96", "flashd_varlen_hd128",
+                      "flashd_varlen_hd256"),
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -59,10 +71,11 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """build/kernels/<name>-<hash>.so: the library this source, the headers
+    """build/kernels/<name>-<hash>.so: the library these units, the headers
     and the flags build to."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+    units = [CSRC / f"{u}.cu" for u in UNITS.get(name, (name,))]
+    for f in (*units, *sorted(CSRC.glob("*.cuh"))):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -70,31 +83,58 @@ def lib_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every missing library among `names`, all nvcc processes at
-    once. Returns seconds per library built (0.0 where one was cached)."""
+    """Compile every unit of every missing library among `names`, all nvcc
+    processes at once, then link each library. Returns the seconds from the
+    start to each library's link (0.0 where one was cached); the ptxas log
+    of its units lands beside it (`<lib>.log`)."""
     names = list(names)
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    procs = {}
     t0 = time.perf_counter()
+    tag = f"{os.getpid()}.tmp"
+    pending = {}  # library → [(unit, process, object, log), …]
     for name in names:
         lib = lib_path(name)
         if lib.exists():
             continue
-        tmp = lib.parent / f"{lib.name}.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, lib)
+        pending[name] = []
+        for unit in UNITS.get(name, (name,)):
+            obj = lib.parent / f"{lib.stem}.{unit}.{tag}.o"
+            log = obj.with_suffix(".log")
+            cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(CSRC / f"{unit}.cu")]
+            with open(log, "w") as fh:
+                proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+            pending[name].append((unit, proc, obj, log))
     secs = {name: 0.0 for name in names}
     errors = []
-    for name, (proc, tmp, lib) in procs.items():
-        log, _ = proc.communicate()
-        secs[name] = time.perf_counter() - t0
-        lib.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    while pending:
+        for name, units in list(pending.items()):
+            if any(proc.poll() is None for _, proc, _, _ in units):
+                continue
+            del pending[name]
+            lib = lib_path(name)
+            text = "".join(log.read_text() for _, _, _, log in units)
+            failed = [u for u, proc, _, _ in units if proc.returncode != 0]
+            if not failed:
+                tmp = lib.parent / f"{lib.name}.{tag}"
+                link = subprocess.run([nvcc(), "-shared", "-o", str(tmp),
+                                       *(str(o) for _, _, o, _ in units)],
+                                      capture_output=True, text=True)
+                text += link.stdout + link.stderr
+                if link.returncode == 0:
+                    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+                else:
+                    failed = ["the link"]
+            lib.with_suffix(".log").write_text(text)
+            for _, _, obj, log in units:
+                obj.unlink(missing_ok=True)
+                log.unlink(missing_ok=True)
+            secs[name] = time.perf_counter() - t0
+            if failed:
+                errors.append(f"nvcc failed for {name} ({', '.join(failed)}):\n{text}")
+        if pending:
+            time.sleep(0.1)
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs

@@ -46,7 +46,11 @@ import torch
 from repro_torch.core.blockwise import MaskSpec, blockwise_backward
 from repro_torch.kernels.flashd_fwd import _MASK_KINDS, check_copy_alignment, check_operands
 
-__all__ = ["flashd_bwd", "flashd_bwd_plain", "launches"]
+__all__ = ["flashd_bwd", "flashd_bwd_plain", "HEAD_DIMS", "launches"]
+
+# K5's head dims: not 256, whose dQ kernel would stage 6 f32 tiles of
+# 64 × 260 (399,360 B) against the 227 KB a block may hold
+HEAD_DIMS = (16, 32, 48, 64, 96, 128)
 
 launches = 0
 _fn = None
@@ -111,7 +115,7 @@ def flashd_bwd(
     global launches
     b, hq, sq, d = q.shape
     _, hkv, skv, dv_ = v.shape
-    check_operands("flashd_bwd", (q, k, v, o, do), d)
+    check_operands("flashd_bwd", (q, k, v, o, do), d, HEAD_DIMS)
     check_copy_alignment("flashd_bwd", (q, k, v, do))
     if (k.shape != (b, hkv, skv, d) or dv_ != d or hq % hkv or o.shape != q.shape
             or do.shape != q.shape or lam.shape != (b, hq, sq)):

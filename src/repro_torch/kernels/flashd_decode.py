@@ -40,6 +40,16 @@ or fp8 e4m3 — with per-(page, head) f32 scales is staged as bytes and
 dequantized as it is read (x·scale), before the scores. The partials merge in split order in the launch,
 as K2's. Same bound as K2.
 
+Head dim 256 and groups above 8. At head dim 256 a CTA stages chunks of
+at most 32 rows (`decode_rows`; two stages of 64 f32 K and V rows would
+take 256 KB), and an f32 lane reads 32 bytes of a row (a row of 16-byte
+chunks would need 64 lanes). A group of 9–16 query heads per kv head
+(recurrentgemma-9b's and qwen3-moe-235b-a22b's 16) runs as two CTAs of
+up to 8 heads over the same split, each with its own arrival counter and
+merge: the group-8 body serves it, its q and P·V registers (GC × 8 floats
+each) would spill at 16, and the second CTA's K/V reads come mostly from
+L2. `MAX_GROUP` is 16.
+
 `launches` counts K2 wrapper calls that launched the kernel;
 `paged_launches` counts K3 wrapper calls that launched the kernel.
 """
@@ -58,6 +68,7 @@ __all__ = [
     "flashd_decode",
     "flashd_decode_plain",
     "gpu_decode_splits",
+    "decode_rows",
     "flashd_decode_paged",
     "flashd_decode_paged_plain",
     "MAX_GROUP",
@@ -65,10 +76,10 @@ __all__ = [
     "paged_launches",
 ]
 
-MAX_GROUP = 8  # G_MAX in the source
+MAX_GROUP = 16  # G_MAX in the source (groups above 8 run as two CTAs of up to 8 heads)
 CTAS_PER_SM = 4  # K2's target of split CTAs per SM
 SPLIT_STEP = 16  # K2's default splits: multiples of 16 positions …
-MAX_ROWS = 64  # … up to the rows a CTA stages at once (k2 chunk)
+MAX_ROWS = 64  # … up to the rows a CTA stages at once (k2 chunk; 32 at head dim 256)
 H100_SMS = 132
 
 launches = 0
@@ -92,6 +103,13 @@ def gpu_decode_splits(b: int, hkv: int, s_max: int, n_sm: int = H100_SMS) -> int
     split = -(-s_max // want)
     split = min(max(-(-split // SPLIT_STEP) * SPLIT_STEP, SPLIT_STEP), MAX_ROWS)
     return -(-s_max // split)
+
+
+def decode_rows(split: int, d: int) -> int:
+    """The rows a K2 / K3 CTA stages at once (`bad_split` in the source):
+    its split rounded up to 4, at most MAX_ROWS — 32 at head dim 256, where
+    two stages of 64 f32 K and V rows would not fit shared memory."""
+    return min(-(-split // 4) * 4, MAX_ROWS if d <= 128 else MAX_ROWS // 2)
 
 
 def _lo_bound(cache_len, start, *, window: int, chunk: int):
@@ -234,7 +252,7 @@ def flashd_decode(
                                      torch.cuda.get_device_properties(dev).multi_processor_count)
     n_splits = max(1, min(n_splits, s_max))
     split = -(-s_max // n_splits)
-    rows = min(-(-split // 4) * 4, MAX_ROWS)  # the CTA's chunk: the split, or 64-row chunks
+    rows = decode_rows(split, d)  # the CTA's chunk: the split, or chunks of 64 (32) rows
 
     o_part = torch.empty((n_splits, b, hq, dv), dtype=torch.float32, device=dev)
     lam_part = torch.empty((n_splits, b, hq), dtype=torch.float32, device=dev)
@@ -242,7 +260,7 @@ def flashd_decode(
     if fused:
         o = torch.empty((b, hq, dv), dtype=q.dtype, device=dev)
         lam = torch.empty((b, hq), dtype=torch.float32, device=dev) if return_lam else None
-        arrivals = torch.empty((b * hkv,), dtype=torch.int32, device=dev)
+        arrivals = torch.empty((b * hq,), dtype=torch.int32, device=dev)  # ≥ B·Hkv·sub-groups
     ptr = lambda t: None if t is None else t.data_ptr()
     rc = _launchers()[0](
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(), ptr(start),
@@ -382,11 +400,11 @@ def flashd_decode_paged(
     n_splits = gpu_decode_splits(b, hkv, s_max,
                                  torch.cuda.get_device_properties(dev).multi_processor_count)
     split = -(-s_max // n_splits)
-    rows = min(-(-split // 4) * 4, MAX_ROWS)
+    rows = decode_rows(split, d)
     o_part = torch.empty((n_splits, b, hq, d), dtype=torch.float32, device=dev)
     lam_part = torch.empty((n_splits, b, hq), dtype=torch.float32, device=dev)
     o = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
-    arrivals = torch.empty((b * hkv,), dtype=torch.int32, device=dev)
+    arrivals = torch.empty((b * hq,), dtype=torch.int32, device=dev)  # ≥ B·Hkv·sub-groups
     rc = _launchers()[1](
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tbl.data_ptr(),
         cache_len.data_ptr(), None if ks is None else ks.data_ptr(),

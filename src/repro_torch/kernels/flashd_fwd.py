@@ -19,7 +19,8 @@ Datapath. Both products run on the tensor cores (mma.sync): bf16 operands
 as m16n8k16 with P rounded to bf16; f32 operands as 3xTF32 (each operand
 split into two TF32 halves, three products, f32 accumulation), which holds
 the 5e-5 bound where one-pass TF32 would not. K/V tiles stream through a
-2-stage cp.async ring. The tile machine (`csrc/attn_tc.cuh`) is shared
+2-stage cp.async ring (one stage for f32 at head dim 256, whose two stages
+would pass a block's 227 KB of shared memory). The tile machine (`csrc/attn_tc.cuh`) is shared
 with K6; only the carry is this kernel's. cp.async copies 16 bytes, so
 every operand's base and batch / head / row strides must be multiples of
 16 bytes (`check_copy_alignment`); the model-layout views are.
@@ -55,7 +56,7 @@ __all__ = [
 
 KERNEL_BLOCK_Q = 64  # q rows per CTA (tc::BQ in csrc/attn_tc.cuh)
 KERNEL_BLOCK_K = 64  # default and largest kv tile (tc::BKP)
-HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+HEAD_DIMS = (16, 32, 48, 64, 96, 128, 256)  # built into K1–K4 and K6 (K5: flashd_bwd.HEAD_DIMS)
 _MASK_KINDS = {"full": 0, "causal": 1, "local": 2, "chunked": 3}
 
 launches = 0
@@ -107,7 +108,7 @@ def check_no_grad(*tensors: torch.Tensor) -> None:
         )
 
 
-def check_operands(name: str, tensors, head_dim: int) -> None:
+def check_operands(name: str, tensors, head_dim: int, head_dims=HEAD_DIMS) -> None:
     for t in tensors:
         if not t.is_cuda:
             raise ValueError(
@@ -122,8 +123,8 @@ def check_operands(name: str, tensors, head_dim: int) -> None:
             raise ValueError(f"{name}: operands must be on one device")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dim must be contiguous (stride 1)")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {head_dim} not built (have {HEAD_DIMS})")
+    if head_dim not in head_dims:
+        raise ValueError(f"{name}: head dim {head_dim} not built (have {head_dims})")
 
 
 def check_copy_alignment(name: str, tensors) -> None:

@@ -78,7 +78,7 @@ FWD_CASES = [
 
 
 @pytest.mark.parametrize("case", FWD_CASES)
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128, 256])
 def test_fwd_kernel_matches_plain(cuda, case, d):
     kind, window, chunk, q_offset, skip = case
     gen = torch.Generator(device=cuda).manual_seed(d)
@@ -424,7 +424,7 @@ def test_decode_kernel_matches_plain(cuda, case, group):
     _close(ob, ob_p, BF16_TOL)
 
 
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 96])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 256])
 def test_decode_kernel_head_dims(cuda, d):
     gen = torch.Generator(device=cuda).manual_seed(d)
     q = torch.randn(3, 4, d, generator=gen, device=cuda)
@@ -1478,3 +1478,212 @@ def test_capture_runs_with_the_collector_off(cuda):
     torch.cuda.synchronize()
     assert seen == [True, False] and gc.isenabled()
     assert x.tolist() == [2.0] * 4  # the warm-up and the replay; the capture ran nothing
+
+
+# ---- head dim 256 (recurrentgemma-9b) and groups of 9–16 (recurrentgemma-9b's
+# and qwen3-moe-235b-a22b's 16) in K1 / K6, K2 / K3 and K4 ----
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_tc_fwd_kernels_at_head_dim_256(cuda, case):
+    """K1 and K6 at head dim 256 over a group of 16 (Hq 16 over Hkv 1, as
+    recurrentgemma-9b), every mask kind, ragged lengths: f32 (the one-stage
+    ring, P·V in passes of 64 columns) and bf16 (Q read per k step) against
+    their plain versions, K6 against K1; repeat calls bitwise equal."""
+    kind, window, chunk, q_offset, skip = case
+    gen = torch.Generator(device=cuda).manual_seed(256 + len(kind))
+    args = tuple(torch.randn(1, s_, h, 256, generator=gen, device=cuda).transpose(1, 2)
+                 for s_, h in ((150, 16), (170, 1), (170, 1)))
+    m = tb.MaskSpec(kind, window, chunk, q_offset)
+    for fwd, plain in TC_FWD:
+        kw = dict(skip=skip, block_k=64) if fwd is k1.flashd_fwd else {}
+        o, lam = fwd(*args, mask=m, **kw)
+        o_p, lam_p = plain(*args, mask=m, **kw)
+        _close(o, o_p)
+        _close(lam, lam_p)
+        if not skip:
+            _close(o, k1.flashd_fwd(*args, mask=m)[0])
+        o2, lam2 = fwd(*args, mask=m, **kw)
+        assert torch.equal(o, o2) and torch.equal(lam, lam2), fwd.__name__
+        xb = tuple(x.bfloat16() for x in args)
+        ob, _ = fwd(*xb, mask=m, **kw)
+        _close(ob, plain(*xb, mask=m, **kw)[0], BF16_TOL)
+        assert torch.equal(ob, fwd(*xb, mask=m, **kw)[0])
+
+
+def test_tc_fwd_kernels_hold_f32_at_large_scores_at_head_dim_256(cuda):
+    """As `test_tc_fwd_kernels_hold_f32_at_large_scores`, at head dim 256
+    and a local window (recurrentgemma-9b's mask): q and k ×4, f32, S 512,
+    held against float64 within 5e-5 and no farther than the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(44)
+    q = torch.randn(1, 512, 4, 256, generator=gen, device=cuda).transpose(1, 2) * 4
+    k = torch.randn(1, 512, 1, 256, generator=gen, device=cuda).transpose(1, 2) * 4
+    v = torch.randn(1, 512, 1, 256, generator=gen, device=cuda).transpose(1, 2)
+    for m in (tb.MaskSpec("causal"), tb.MaskSpec("local", window=200)):
+        o_t, lam_t = _attention_f64(q, k, v, m)
+        o_p, lam_p = k1.flashd_fwd_plain(q, k, v, mask=m)
+        plain_err = max(float((o_p - o_t).abs().max()), float((lam_p - lam_t).abs().max()))
+        for fwd, _ in TC_FWD:
+            o, lam = fwd(q, k, v, mask=m)
+            err = max(float((o - o_t).abs().max()), float((lam - lam_t).abs().max()))
+            assert err <= min(TOL, plain_err), (fwd.__name__, m.kind, err, plain_err)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 12, 16])
+@pytest.mark.parametrize("d", [128, 256])
+def test_decode_kernel_at_head_dim_256_and_large_groups(cuda, d, group):
+    """K2 at head dims 128 and 256 and groups up to 16 (above 8 two CTAs
+    of up to 8 heads each, 12 leaving 4 of the second idle): the splits of
+    DECODE_CASES (window, chunk, start, fused and unfused, Λ), cache_len 0
+    to full, f32 and bf16; an empty row exactly 0 / NEG_INF; repeat calls
+    bitwise equal."""
+    gen = torch.Generator(device=cuda).manual_seed(d + group)
+    b, hkv, s_max = 6, 2, 300
+    q = torch.randn(b, hkv * group, d, generator=gen, device=cuda)
+    kc = torch.randn(b, s_max, hkv, d, generator=gen, device=cuda).transpose(1, 2)
+    vc = torch.randn(b, s_max, hkv, d, generator=gen, device=cuda).transpose(1, 2)
+    cl = torch.tensor([0, 1, 130, 257, 299, 300], dtype=torch.int32, device=cuda)
+    start = torch.tensor([0, 0, 40, 200, 10, 299], dtype=torch.int32, device=cuda)
+    for n_splits, window, chunk, with_start, fused in DECODE_CASES:
+        kw = dict(window=window, chunk=chunk, start=start if with_start else None, fused=fused,
+                  return_lam=True,
+                  n_splits=k2.gpu_decode_splits(b, hkv, s_max) if n_splits is None else n_splits)
+        for dtype, tol in ((torch.float32, TOL), (torch.bfloat16, BF16_TOL)):
+            x = (q.to(dtype), kc.to(dtype), vc.to(dtype))
+            o, lam = k2.flashd_decode(*x, cl, **kw)
+            o_p, lam_p = k2.flashd_decode_plain(*x, cl, **kw)
+            _close(o, o_p, tol)
+            _close(lam, lam_p)
+            assert (o[0] == 0).all() and (lam[0] == tb.NEG_INF).all()
+    o, lam = k2.flashd_decode(q, kc, vc, cl, return_lam=True)
+    o2, lam2 = k2.flashd_decode(q, kc, vc, cl, return_lam=True)
+    assert torch.equal(o, o2) and torch.equal(lam, lam2)
+
+
+@pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "fp8"])
+@pytest.mark.parametrize("group", [1, 2, 8, 12, 16])
+@pytest.mark.parametrize("d", [128, 256])
+def test_paged_kernels_at_head_dim_256_and_large_groups(cuda, d, group, pool):
+    """K3 and K4 at head dims 128 and 256 and groups up to 16, on f32 and
+    bf16 pools (q of their dtype) and int8 and fp8 pools (f32 and bf16 q),
+    pages of 16, under the causal, local and chunked masks. K3 at cache_len
+    0 to full against its plain version in the reference's per-page order;
+    K4 on a pack with decode rows and a verify chain (the CUDA-core body
+    below 16 live rows a kv head; a group of 16 makes a decode row 16 rows:
+    the tensor cores), a prompt and a chunk, at block_q 8 and at the
+    reference's block_q 64 for a group of 16 (16 row groups a block).
+    Padding rows exactly 0; repeat calls bitwise equal. A bf16 q over a
+    byte pool is held to 2^-7 of the largest dequantized |V| (or BF16_TOL
+    if larger): K4's tensor cores take the dequantized K and V tiles and P
+    in bf16, each rounding bounded by 2^-9·max|V| in O, and the fp8 pool's
+    values reach |V| ≈ 7 where |O| stays near 3 (2^-7·max|O|, the bound at
+    head dims 16 and 96 with groups up to 4, was passed by one bf16 ulp at
+    G 8 and 16, at head dim 128 as at 256)."""
+    gen = torch.Generator(device=cuda).manual_seed(d + group * 10 + len(pool))
+    hkv, page, n_tbl = 2, 16, 10
+    full = n_tbl * page
+    lengths = [0, 1, page + 1, full - 3, full]
+    byte = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}.get(pool)
+    kp, vp, tbl, ks, vs = _paged_pool(gen, cuda, lengths, n_tbl, page, hkv, d,
+                                      byte or torch.float32)
+    if byte is None:
+        kp, vp = kp.to(getattr(torch, pool)), vp.to(getattr(torch, pool))
+    cl = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q = torch.randn(len(lengths), hkv * group, d, generator=gen, device=cuda)
+    packs = [8] + ([64] if group == 16 else [])
+    q_types = (torch.float32, torch.bfloat16) if byte is not None else (kp.dtype,)
+    sc = dict(k_scale=ks, v_scale=vs)
+    live = tbl[tbl > 0].long()
+    v_max = float((vp[live].float() * (1.0 if vs is None else vs[live][:, None, :, None])).abs()
+                  .max())
+
+    def bound(dt, want):
+        if dt == torch.float32:
+            return TOL
+        return max(BF16_TOL, 2.0 ** -7 * (v_max if byte is not None else float(want.abs().max())))
+
+    k2.paged_launches = k4.launches = 0
+    for dt in q_types:
+        for mask in ({}, dict(window=11), dict(chunk=24)):
+            o = k2.flashd_decode_paged(q.to(dt), kp, vp, tbl, cl, **sc, **mask)
+            want = k2.flashd_decode_paged_plain(q.to(dt), kp, vp, tbl, cl, **sc, **mask)
+            assert torch.isfinite(o).all() and (o[0] == 0).all()
+            _close(o, want, bound(dt, want))
+            assert torch.equal(o, k2.flashd_decode_paged(q.to(dt), kp, vp, tbl, cl, **sc, **mask))
+            for bq in packs:
+                seq_ids, q_pos = _pack(lengths, [0, 1, 5, 40, 37], bq)  # decode, verify, prompt, chunk
+                sid, qp = (torch.tensor(x, dtype=torch.int32, device=cuda) for x in (seq_ids, q_pos))
+                qv = torch.randn(len(seq_ids), hkv * group, d, generator=gen, device=cuda).to(dt)
+                ov = k4.flashd_varlen(qv, kp, vp, tbl, sid, qp, cl, block_q=bq, **sc, **mask)
+                want = k4.flashd_varlen_plain(qv, kp, vp, tbl, sid, qp, cl, block_q=bq, **sc,
+                                              **mask)
+                assert torch.isfinite(ov).all() and (ov[qp < 0] == 0).all()
+                _close(ov, want, bound(dt, want))
+                assert torch.equal(ov, k4.flashd_varlen(qv, kp, vp, tbl, sid, qp, cl, block_q=bq,
+                                                        **sc, **mask))
+    assert k2.paged_launches == 2 * 3 * len(q_types)
+    assert k4.launches == 2 * 3 * len(q_types) * len(packs)
+
+
+def test_varlen_row_groups_at_group_16(cuda):
+    """K4's row-group geometry at a group of 16 (`_row_groups`): block_q 8
+    makes 2 row groups of 64 a block, block_q 64 makes 16, and the launcher
+    takes both; a mixed pack of decode rows and a 16-row chunk at head dim
+    128 (qwen3-moe-235b-a22b's shape at Hkv 4) against plain."""
+    assert k4._row_groups(8, 16) == (2, 1, 64)
+    assert k4._row_groups(64, 16) == (16, 1, 64)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    hkv, group, d, page, n_tbl = 4, 16, 128, 64, 4
+    plan = StepPlan(segments=tuple(
+        Segment(slot=i, tokens=np.zeros(n, np.int32), start=st, emits=n == 1)
+        for i, (n, st) in enumerate(((1, 150), (1, 3), (16, 96), (1, 200)))), n_tokens=19)
+    for bq in (8, 64):
+        _, sid_np, qpos_np, kvl_np, _ = pack_plan(plan, bq, 4)
+        sid, qp, kvl = (torch.as_tensor(x, device=cuda) for x in (sid_np, qpos_np, kvl_np))
+        q = torch.randn(len(sid_np), hkv * group, d, generator=gen, device=cuda)
+        kp, vp, tbl, _, _ = _paged_pool(gen, cuda, kvl_np.tolist(), n_tbl, page, hkv, d)
+        o = k4.flashd_varlen(q, kp, vp, tbl, sid, qp, kvl, block_q=bq)
+        assert torch.isfinite(o).all() and (o[qp < 0] == 0).all()
+        _close(o, k4.flashd_varlen_plain(q, kp, vp, tbl, sid, qp, kvl, block_q=bq))
+
+
+# the A12 stacks at smoke depth with their full configs' heads: recurrentgemma
+# Hq 16 over Hkv 1 of head dim 256, qwen3-moe Hq 32 over Hkv 2 of 128 (G 16)
+WIDE_HEADS = {"recurrentgemma-9b": dict(n_heads=16, n_kv_heads=1, head_dim=256),
+              "qwen3-moe-235b-a22b": dict(n_heads=32, n_kv_heads=2, head_dim=128)}
+
+
+@pytest.mark.parametrize("loop", sorted(A12_LOOPS))
+@pytest.mark.parametrize("arch", sorted(WIDE_HEADS))
+def test_a12_engines_at_head_dim_256_and_group_16(cuda, arch, loop):
+    """recurrentgemma-9b (head dim 256, G 16: K1 under the local mask, K2
+    on the rings; no pool, so every loop serves on the contiguous one) and
+    qwen3-moe-235b-a22b (G 16: K2, K3, K4) at smoke depth with their full
+    configs' heads, f32: the captured steps give the eager steps' tokens,
+    launch counts and host syncs, and the plain route's tokens; the forward's
+    logits within 1e-4 of the plain route's."""
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32", **WIDE_HEADS[arch])
+    params = init_lm(cfg, device=cuda, seed=1)
+    rng = np.random.default_rng(3)
+    reqs = [rng.integers(0, cfg.vocab_size, (int(n),)).astype(np.int32) for n in (7, 37, 9, 30)]
+    sc = ServeConfig(max_batch=2, max_len=64, decode_chunk=3, **A12_LOOPS[loop])
+    captured = _served(Engine(params, cfg, sc, device=cuda), reqs, 8)
+    eager = _served(Engine(params, cfg, sc, device=cuda, graphs=False), reqs, 8)
+    for got, want in zip(captured[:3], eager[:3]):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert captured[3:5] == eager[3:5] and captured[3][0] > 0
+    if arch == "qwen3-moe-235b-a22b" and loop != "contiguous":
+        assert captured[3][1] > 0 and (captured[3][2] > 0) == (loop == "mixed")
+    plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
+    before = launch_counts()
+    plain = Engine(params, plain_cfg, sc, device=cuda).serve(reqs, 8)
+    assert launch_counts() == before
+    for g, w in zip(captured[0], plain):
+        np.testing.assert_array_equal(g, w)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 40)), device=cuda)
+    k1.launches = 0
+    with torch.inference_mode():
+        logits, _ = apply_lm(params, {"tokens": toks}, cfg)
+        logits_p, _ = apply_lm(params, {"tokens": toks}, plain_cfg)
+    assert k1.launches > 0
+    _close(logits[..., :cfg.vocab_size], logits_p[..., :cfg.vocab_size], 1e-4)

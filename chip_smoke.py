@@ -153,14 +153,18 @@ non-zero:
  21. two lines. recurrentgemma-9b at full width and depth (38 layers, d
      4096, Hq 16 over Hkv 1 of head dim 256: a group of 16, local window
      2048, vocab 256000), f32, seeded random weights (`_rgemma_phase`): K1
-     and K6 at its attention shape (B 1, S 4096, local 2048) against plain
-     in f32 and bf16, bitwise repeats, timed beside SDPA with the mask as a
-     boolean one and their bounds; K5 refusing head dim 256 by name with no
-     launch; the forward at S 4096 across the window, kernel against plain
-     logits at positions 2047 and 4095; 6 requests on the contiguous loop
-     (no global layer, so no pool), captured = eager = plain tokens, K2
-     launched; a captured decode step's breakdown; K2 on a 2048-slot ring
-     filled past a wrap against plain, timed. Then qwen3-moe-235b-a22b at
+     K6 and K5 at its attention shape (B 1, S 4096, local 2048) against
+     plain in f32 and bf16, bitwise repeats, timed beside SDPA (K5: its
+     backward) with the mask as a boolean one and their bounds; the forward
+     at S 4096 across the window, kernel against plain logits at positions
+     2047 and 4095; 6 requests on the contiguous loop (no global layer, so
+     no pool), captured = eager = plain tokens, K2 launched; a captured
+     decode step's breakdown; K2 on a 2048-slot ring filled past a wrap
+     against plain, timed; one train step (B 1 × S 2560, across the
+     window) at full width on the kernel (K1 + K5), FA2 (K6 + K5) and plain
+     paths, cut to the whole periods whose train state fits the card (bf16
+     AdamW moments, no numerics guard), loss and grad norm against plain,
+     peak memory printed. Then qwen3-moe-235b-a22b at
      full width (Hq 64 over Hkv 4: G 16, 128 experts top-8), 2 of 94
      layers (`_qwen3moe_phase`): 6 requests through the captured
      contiguous, paged and mixed loops, kernel = plain tokens in each, K2,
@@ -391,7 +395,10 @@ class _Phase:
         self.t = time.perf_counter()
 
     def __str__(self) -> str:
-        return f"[{time.perf_counter() - self.t:.1f} s]"
+        import torch
+
+        return (f"[{time.perf_counter() - self.t:.1f} s, "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated]")
 
 
 def _paged_pool(gen, dev, lengths, n_tbl, page, hkv, d, dtype):
@@ -1074,14 +1081,14 @@ def _ptxas_hd(name: str, tag: str) -> str:
 
 
 def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv: int,
-                  mask: str, seed: int, window: int = 0, backward: bool = True):
-    """K1, K6 and (with `backward`) K5 at one attention shape ([B, H, S, d]
+                  mask: str, seed: int, window: int = 0):
+    """K1, K6 and K5 at one attention shape ([B, H, S, d]
     views of model-layout tensors, Sq query rows against Skv keys, the
     `mask` kind 'full', or 'causal' or 'local' (of `window` keys) at Sq =
     Skv) against their plain versions: O and Λ within F32_TOL in f32 (K6's
-    O against K1's too), O within BF16_TOL in bf16, a repeat call of K1 and
-    K6 bitwise equal; dQ, dK, dV within GRAD_RTOL / GRAD_ATOL per entry in
-    f32 and GRAD_BF16·max|grad| in bf16. Each timed (CUDA events, L2
+    O against K1's too), O within BF16_TOL in bf16; dQ, dK, dV within
+    GRAD_RTOL / GRAD_ATOL per entry in f32 and GRAD_BF16·max|grad| in bf16;
+    a repeat call of each kernel bitwise equal. Each timed (CUDA events, L2
     flushed) in both dtypes beside its plain version (f32), one SDPA call in
     the same dtype (its backward for K5; a local mask as a boolean one over
     the kv heads repeated for the group) and its bounds. Returns ({kernel
@@ -1119,9 +1126,8 @@ def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv
                                   2 * k5_elems + lam_bytes)}
     rows, report = {}, []
     kernels = [("flashd_fwd", k1.flashd_fwd, k1.flashd_fwd_plain, "fwd"),
-               ("fa2_fwd", k6.fa2_fwd, k6.fa2_fwd_plain, "fwd")]
-    if backward:
-        kernels.append(("flashd_bwd", k5.flashd_bwd, k5.flashd_bwd_plain, "bwd"))
+               ("fa2_fwd", k6.fa2_fwd, k6.fa2_fwd_plain, "fwd"),
+               ("flashd_bwd", k5.flashd_bwd, k5.flashd_bwd_plain, "bwd")]
     for name, kern, plain, kind in kernels:
         row = {}
         for dt, tag in ((torch.float32, ""), (torch.bfloat16, "bf16_")):
@@ -1161,10 +1167,17 @@ def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv
                         ok = ok and float(diff.max()) <= GRAD_BF16 * float(w.float().abs().max())
                     ok = ok and bool(torch.isfinite(a).all())
                     err = max(err, float(diff.max()))
+                ok = ok and all(torch.equal(a, a2) for a, a2 in zip(got, kern(*args, mask=spec)))
                 del got, want
-                q_l, k_l, v_l = (x.contiguous().requires_grad_() for x in (q, k, v))
-                o_l = F.scaled_dot_product_attention(q_l, k_l, v_l, is_causal=causal,
-                                                     enable_gqa=True)
+                # detached: at Hkv 1 the view is contiguous, and its grad flag would stick
+                q_l, k_l, v_l = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+                if local:  # the kv heads repeated inside the graph: their gradients summed
+                    o_l = F.scaled_dot_product_attention(
+                        q_l, *(x.repeat_interleave(hq // hkv, dim=1) for x in (k_l, v_l)),
+                        attn_mask=vis)
+                else:
+                    o_l = F.scaled_dot_product_attention(q_l, k_l, v_l, is_causal=causal,
+                                                         enable_gqa=True)
                 do_l = do.contiguous()
                 lib = lambda: torch.autograd.grad(o_l, (q_l, k_l, v_l), do_l, retain_graph=True)
             assert ok, (name, shape, dt, err)
@@ -1185,11 +1198,47 @@ def _attn_kernels(dev, flush, *, b: int, hq: int, hkv: int, d: int, sq: int, skv
             f"{row['library_ms']:.4f} / {row['bf16_library_ms']:.4f} ms; "
             + _fmt_bounds(bounds[kind], ops[kind], {"kernel f32": row["ms"],
                                                     "kernel bf16": row["bf16_ms"]}))
-    text = (f"K1, K6{', K5' if backward else ''} at {shape} against plain (bounds: f32 O, Λ "
+    text = (f"K1, K6, K5 at {shape} against plain (bounds: f32 O, Λ "
             f"{F32_TOL}, gradients rtol {GRAD_RTOL} atol {GRAD_ATOL}; bf16 O {BF16_TOL}, "
-            f"gradients {GRAD_BF16:.4f}·max|grad|; forward repeats bitwise equal): "
+            f"gradients {GRAD_BF16:.4f}·max|grad|; repeats bitwise equal): "
             + "; ".join(report))
     return rows, text
+
+
+def _train_paths(cfg, tc, state, batch, label: str):
+    """One train step from `state` on the kernel (K1 + K5), plain and FA2
+    (K6 + K5) paths of `cfg`, the launch counters set to 0 just before
+    each: the plain path launches nothing; the kernel and FA2 paths launch
+    their forward kernel and K5, not the other forward; loss and grad norm
+    within TRAIN_REL[0] of plain. Returns ({path: (loss, grad norm,
+    seconds)}, {path: launches}) — phases 19, 20 and 21."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train import make_train_step
+
+    train, launched = {}, {}
+    for name, impl in (("kernel", "flashd_gpu"), ("plain", "flashd_plain"), ("fa2", "fa2_gpu")):
+        step = make_train_step(dataclasses.replace(cfg, attn_impl=impl), tc)
+        torch.cuda.synchronize()
+        _zero_launches()
+        t = time.perf_counter()
+        new, m = step(state, batch)
+        loss, gnorm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
+        train[name] = (loss, gnorm, time.perf_counter() - t)
+        got = launched[name] = _launches()
+        del new, m, step
+        if name == "plain":
+            assert sum(got.values()) == 0, (f"{label} train: the plain path launched", got)
+        else:
+            fwd, other = (("flashd_fwd", "fa2_fwd") if name == "kernel"
+                          else ("fa2_fwd", "flashd_fwd"))
+            assert got[fwd] > 0 and got["flashd_bwd"] > 0 and got[other] == 0, (label, name, got)
+    for name in ("kernel", "fa2"):
+        for i, what in ((0, "loss"), (1, "grad norm")):
+            x, y = train[name][i], train["plain"][i]
+            assert np.isfinite(x) and abs(x - y) <= TRAIN_REL[0] * abs(y), (label, name, what, x, y)
+    return train, launched
 
 
 def _phi3_phase(dev, card: str, flush):
@@ -1223,7 +1272,7 @@ def _phi3_phase(dev, card: str, flush):
     from repro_torch.models.transformer import apply_lm, decode_step_lm, init_decode_cache, init_lm
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.serve.graphs import StepGraphs
-    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train import TrainConfig, init_train_state
     from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), dtype="float32")
@@ -1257,31 +1306,11 @@ def _phi3_phase(dev, card: str, flush):
     tc = TrainConfig(warmup_steps=0, total_steps=4)  # the lr peaks at step 0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    train = {}
-    for name, impl in (("kernel", "flashd_gpu"), ("plain", "flashd_plain"), ("fa2", "fa2_gpu")):
-        c = dataclasses.replace(cfg, n_layers=n_train, attn_impl=impl)
-        state = init_train_state(c, tc, device=dev, seed=0)
-        step = make_train_step(c, tc)
-        torch.cuda.synchronize()
-        reset()
-        t = time.perf_counter()
-        state, m = step(state, batch)
-        loss, gnorm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
-        train[name] = (loss, gnorm, time.perf_counter() - t)
-        got = counts()
-        del state, m, step
-        if name == "plain":
-            assert sum(got.values()) == 0, ("phi-3 train: the plain path launched a kernel", got)
-        else:
-            fwd = "flashd_fwd" if name == "kernel" else "fa2_fwd"
-            other = "fa2_fwd" if name == "kernel" else "flashd_fwd"
-            assert got[fwd] > 0 and got["flashd_bwd"] > 0 and got[other] == 0, (name, got)
-            add(got)
+    c = dataclasses.replace(cfg, n_layers=n_train)
+    train, got = _train_paths(c, tc, init_train_state(c, tc, device=dev, seed=0), batch, "phi-3")
+    add(got["kernel"])
+    add(got["fa2"])
     train_peak = torch.cuda.max_memory_allocated()
-    for name in ("kernel", "fa2"):
-        for i, what in ((0, "loss"), (1, "grad norm")):
-            x, y = train[name][i], train["plain"][i]
-            assert np.isfinite(x) and abs(x - y) <= TRAIN_REL[0] * abs(y), (name, what, x, y)
     train_text = (
         f"train step B1 x ({cfg.frontend_tokens} patch rows + {PHI3_TRAIN_TEXT} tokens), "
         f"{n_train} of {cfg.n_layers} layers (the depth whose {TRAIN_COPIES} copies of the "
@@ -1532,7 +1561,7 @@ def _encdec_phase(dev, card: str, flush):
 
     from repro_torch.configs import get_config
     from repro_torch.models import encdec as ed
-    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train import TrainConfig, init_train_state
     from repro_torch.tree import tree_leaves
 
     cfg = dataclasses.replace(get_config("seamless-m4t-medium"), dtype="float32")
@@ -1584,31 +1613,15 @@ def _encdec_phase(dev, card: str, flush):
 
     # one train step on each path from the same state
     tc = TrainConfig(warmup_steps=0, total_steps=4)  # the lr peaks at step 0
-    state = init_train_state(cfg, tc, params=params)
-    train = {}
-    for name, impl in (("kernel", "flashd_gpu"), ("plain", "flashd_plain"), ("fa2", "fa2_gpu")):
-        step = make_train_step(dataclasses.replace(cfg, attn_impl=impl), tc)
-        torch.cuda.synchronize()
-        _zero_launches()
-        t = time.perf_counter()
-        new, m = step(state, batch)
-        loss, gnorm = torch.stack([m["loss"], m["grad_norm"]]).tolist()
-        train[name] = (loss, gnorm, time.perf_counter() - t)
-        got = _launches()
-        del new, m, step
-        if name == "plain":
-            assert sum(got.values()) == 0, ("seamless train: the plain path launched", got)
-        else:  # remat 'full': each block's forward runs again in the backward
-            fwd_k = "flashd_fwd" if name == "kernel" else "fa2_fwd"
-            assert got[fwd_k] == 2 * n_attn and got["flashd_bwd"] == n_attn, (name, got)
-            assert sum(got.values()) == 3 * n_attn, (name, got)
-            add(got)
-    del state
+    train, got = _train_paths(cfg, tc, init_train_state(cfg, tc, params=params), batch,
+                              "seamless")
+    for name, fwd_k in (("kernel", "flashd_fwd"), ("fa2", "fa2_fwd")):
+        # remat 'full': each block's forward runs again in the backward
+        n = got[name]
+        assert n[fwd_k] == 2 * n_attn and n["flashd_bwd"] == n_attn, (name, n)
+        assert sum(n.values()) == 3 * n_attn, (name, n)
+        add(n)
     train_peak = torch.cuda.max_memory_allocated()
-    for name in ("kernel", "fa2"):
-        for i, what in ((0, "loss"), (1, "grad norm")):
-            x, y = train[name][i], train["plain"][i]
-            assert np.isfinite(x) and abs(x - y) <= TRAIN_REL[0] * abs(y), (name, what, x, y)
 
     # the decode chain: encode, the cross cache, a prompt, greedy tokens
     b, n_prompt = 4, SEAMLESS_PROMPT
@@ -1700,6 +1713,14 @@ def _encdec_phase(dev, card: str, flush):
 RGEMMA_SEQ = 4096  # phase 21: K1 / K6's S and the forward's, two local windows of 2048
 RGEMMA_MEM_SHARE = 0.7  # its f32 weights' share of the card, beyond which whole periods are cut
 RGEMMA_RING_READS = (2100, 4095, 3000, 1500)  # K2 on a 2048-slot ring: three past a wrap
+RGEMMA_TRAIN_SEQ = 2560  # phase 21's train step: B 1 x S 2560, past the 2048 window
+# phase 21's train state, bytes a parameter live at once in the step with bf16
+# AdamW moments and no numerics guard: the parameters, their gradients and the
+# new parameters (f32, 4 each), the moments and the new moments (2 + 2 each)
+RGEMMA_TRAIN_BYTES = 20
+# what the step holds beyond that state at B 1 x S 2560 — activations, AdamW's
+# pass temporaries: 2.34 GB over a one-period state measured on an H100 80GB
+RGEMMA_TRAIN_HEADROOM = 4e9
 QWEN3MOE_LAYERS = 2  # qwen3-moe-235b-a22b's depth cut (of 94): its full width fits the card
 
 
@@ -1735,12 +1756,10 @@ def _rgemma_phase(dev, card: str, flush):
     rglru, attn_local, and 2 rglru), f32, seeded random weights — whole
     periods cut only if its weights would pass RGEMMA_MEM_SHARE of the card:
 
-      * K1 and K6 at its attention shape (B 1, S RGEMMA_SEQ, local 2048) in
-        f32 and bf16 against plain, repeats bitwise equal, timed beside one
-        SDPA call with the local mask as a boolean one, and their bounds
-        (`_attn_kernels`, no K5: its head dim 256 is not built);
-      * K5 at head dim 256 refuses with a ValueError naming the head dim,
-        and launches nothing;
+      * K1, K6 and K5 at its attention shape (B 1, S RGEMMA_SEQ, local 2048)
+        in f32 and bf16 against plain, repeats bitwise equal, timed beside
+        one SDPA call (K5: its backward) with the local mask as a boolean
+        one, and their bounds (`_attn_kernels`);
       * the forward at B 1 × S RGEMMA_SEQ (across the window), kernel path
         against plain path: logits at the window's last position and at the
         last position within LOGIT_TOL (never the [S, V] logits), one K1
@@ -1753,7 +1772,8 @@ def _rgemma_phase(dev, card: str, flush):
       * K2 on a 2048-slot ring of an attention layer filled past a wrap
         (B 4, positions RGEMMA_RING_READS read over min(pos + 1, 2048)
         slots) against plain in the kernel's split order, timed
-        (`_served_direct`).
+        (`_served_direct`);
+      * one train step at full width (`_rgemma_train`).
 
     Returns (report, launches per kernel over the kernel-path runs,
     {kernel: rgemma_* row})."""
@@ -1761,7 +1781,6 @@ def _rgemma_phase(dev, card: str, flush):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flashd_bwd as k5
     from repro_torch.models.layers import logits_from_hidden
     from repro_torch.models.transformer import decode_step_lm, forward_hidden, init_decode_cache, init_lm
     from repro_torch.serve import ServeConfig
@@ -1779,19 +1798,9 @@ def _rgemma_phase(dev, card: str, flush):
     plain_cfg = dataclasses.replace(cfg, attn_impl="flashd_plain")
     hq, hkv, d, win = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, cfg.attn_window
     attn_rows, attn_text = _attn_kernels(dev, flush, b=1, hq=hq, hkv=hkv, d=d, sq=RGEMMA_SEQ,
-                                         skv=RGEMMA_SEQ, mask="local", window=win, seed=21,
-                                         backward=False)
+                                         skv=RGEMMA_SEQ, mask="local", window=win, seed=21)
     rows = {kernel: {f"rgemma_d256_{key}": val for key, val in row.items()}
             for kernel, row in attn_rows.items()}
-    x = torch.zeros(1, 2, 64, d, device=dev)
-    before = k5.launches
-    try:
-        k5.flashd_bwd(x, x[:, :1], x[:, :1], x, torch.zeros(1, 2, 64, device=dev), x)
-        raise AssertionError("K5 took head dim 256")
-    except ValueError as exc:
-        assert f"head dim {d}" in str(exc) and k5.launches == before, exc
-        k5_text = f"K5 at head dim {d}: ValueError '{exc}', no launch"
-    del x
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1879,15 +1888,73 @@ def _rgemma_phase(dev, card: str, flush):
             f"a {win}-slot local-attention ring filled past a wrap", flush=flush, local=True)
     rows["flashd_decode"] = {f"rgemma_ring_{key}": val for key, val in ring_row.items()}
     del ring
+    train_text, train_launched = _rgemma_train(full, dev, total)
+    add(train_launched)
     depth = (f"{cfg.n_layers} layers" if cfg.n_layers == full.n_layers else
              f"{cfg.n_layers} of {full.n_layers} layers (whole periods cut: the f32 weights "
              f"would pass {RGEMMA_MEM_SHARE} of the card's {total / 1e9:.1f} GB)")
     text = (f"recurrentgemma-9b f32 full width (d {cfg.d_model}, Hq {hq} / Hkv {hkv} of head dim "
             f"{d}, window {win}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), {depth}, "
             f"{param_bytes / 1e9:.2f} GB of parameters (init {init_s:.1f} s), peak "
-            f"{peak / 1e9:.2f} GB allocated, on {card}: {attn_text}; {k5_text}; {fwd_text}; "
-            f"{serve_text}; {bd}; {ring_text}")
+            f"{peak / 1e9:.2f} GB allocated, on {card}: {attn_text}; {fwd_text}; "
+            f"{serve_text}; {bd}; {ring_text}; {train_text}")
     return text, launched, rows
+
+
+def _rgemma_train(full, dev, total: int):
+    """Phase 21's train step: recurrentgemma-9b at full width (`full`),
+    f32, cut to the whole periods (rglru, rglru, attn_local) whose train
+    state — RGEMMA_TRAIN_BYTES a parameter: bf16 AdamW moments and no
+    numerics guard, the reference's own knobs — fits TRAIN_MEM_SHARE of the
+    card (`total` bytes) and, less RGEMMA_TRAIN_HEADROOM, the memory free
+    when it starts; one SyntheticLM batch of B 1 × S RGEMMA_TRAIN_SEQ
+    (past the 2048 window, so K5's local-mask edge is in play); the lr at
+    its peak at step 0. The kernel path (K1 + K5), the FA2 path (K6 + K5)
+    and the plain path from one seeded state (`_train_paths`). Returns
+    (report, launches per kernel over the kernel and FA2 steps)."""
+    import torch
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import TrainConfig, init_train_state
+
+    period = len(full.pattern)
+    count = lambda n: dataclasses.replace(full, n_layers=n).param_count()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held, free = torch.cuda.memory_allocated(dev), torch.cuda.mem_get_info(dev)[0]
+    # the share of the card, and what is free now less the step's headroom
+    budget = min(TRAIN_MEM_SHARE * total, free - RGEMMA_TRAIN_HEADROOM)
+    n_layers = period
+    while (n_layers + period <= full.n_layers
+           and RGEMMA_TRAIN_BYTES * count(n_layers + period) <= budget):
+        n_layers += period
+    assert RGEMMA_TRAIN_BYTES * count(n_layers) <= budget, (count(n_layers), held, free)
+    data = SyntheticLM(DataConfig(vocab_size=full.vocab_size, seq_len=RGEMMA_TRAIN_SEQ,
+                                  global_batch=1, seed=0)).batch(0)
+    batch = {k_: torch.as_tensor(x, device=dev) for k_, x in data.items()}
+    tc = TrainConfig(warmup_steps=0, total_steps=4, opt_state_dtype="bfloat16",
+                     numerics_guard=False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    train, got = _train_paths(cfg, tc, init_train_state(cfg, tc, device=dev, seed=0), batch,
+                              "rgemma")
+    launched = {key: got["kernel"][key] + got["fa2"][key] for key in got["kernel"]}
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    text = (f"train step B1 x S{RGEMMA_TRAIN_SEQ}, {n_layers} of {full.n_layers} layers "
+            f"({count(n_layers) / 1e9:.3f} B parameters: the whole periods whose "
+            f"{RGEMMA_TRAIN_BYTES} B a parameter — f32 parameters, gradients and new parameters, "
+            f"bf16 AdamW moments old and new, no numerics guard — fit {budget / 1e9:.1f} GB: "
+            f"the least of {TRAIN_MEM_SHARE} of the card's {total / 1e9:.1f} GB and the "
+            f"{free / 1e9:.1f} GB free less {RGEMMA_TRAIN_HEADROOM / 1e9:.0f} GB for "
+            f"activations, with {held / 1e9:.2f} GB still allocated before the step; one more "
+            f"period would take {RGEMMA_TRAIN_BYTES * count(n_layers + period) / 1e9:.1f} GB), peak "
+            f"{peak / 1e9:.2f} GB allocated: loss / grad norm kernel {train['kernel'][:2]}, fa2 "
+            f"{train['fa2'][:2]}, plain {train['plain'][:2]} (bound {TRAIN_REL[0]} relative); "
+            f"seconds kernel {train['kernel'][2]:.2f}, fa2 {train['fa2'][2]:.2f}, plain "
+            f"{train['plain'][2]:.2f}; launches (kernel + fa2) {launched}")
+    return text, launched
 
 
 def _qwen3moe_phase(dev, card: str, flush):
@@ -2930,6 +2997,7 @@ def main() -> int:
               f"restart, loss curve bitwise equal to the clean run {got_curve}; checkpoint "
               f"(step {extra['data_step']}, {ck_bytes / 2**30:.2f} GiB on disk at the end) "
               f"restored into serve.Engine gives the in-memory weights' 2x16 greedy tokens {ph}")
+    del clean, got, restored, batches  # three train states no later phase reads
 
     # ---- 15. the quantized pool (A8): int8 and fp8 through the paged and mixed loops ----
     ph = _Phase()

@@ -258,7 +258,9 @@ struct Products<float, HD> {
   // registers a thread once split); it is split as it is read
   __device__ __forceinline__ void load_q(const float*, int, int) {}
 
-  __device__ __forceinline__ void scores(float (&s)[NJ][4], const float* sQ, const float* sK,
+  // NS n8 blocks of keys (K5 at head dim 256 takes 4)
+  template <int NS>
+  __device__ __forceinline__ void scores(float (&s)[NS][4], const float* sQ, const float* sK,
                                          int r0, int lane) const {
     const int g = lane >> 2, t = lane & 3;
     const float* qa = sQ + (r0 + g) * L::LD + t;
@@ -271,7 +273,7 @@ struct Products<float, HD> {
       split_tf32(qa[kk + 4], ah[2], al[2]);
       split_tf32(qa[kk + 8 * L::LD + 4], ah[3], al[3]);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {  // b0 (k t, key g), b1 (k t + 4, key g)
+      for (int j = 0; j < NS; ++j) {  // b0 (k t, key g), b1 (k t + 4, key g)
         uint32_t bh0, bl0, bh1, bl1;
         split_tf32(kb[j * 8 * L::LD + kk], bh0, bl0);
         split_tf32(kb[j * 8 * L::LD + kk + 4], bh1, bl1);
@@ -322,14 +324,14 @@ struct Products<float, HD> {
 
 // ---- staging ----
 
-// rows row0 … row0 + 63 of a [rows, HD] view (row stride ld) into a
-// padded tile; rows ≥ n_rows are zero-filled
-template <typename T, int HD>
+// rows row0 … row0 + ROWS − 1 of a [rows, HD] view (row stride ld) into a
+// padded tile, by NT threads; rows ≥ n_rows are zero-filled
+template <typename T, int HD, int ROWS = BKP, int NT = NTHREADS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long ld, int row0, int n_rows,
                                           int tid) {
   using L = Layout<T, HD>;
 #pragma unroll 4
-  for (int i = tid; i < BKP * L::CPR; i += NTHREADS) {
+  for (int i = tid; i < ROWS * L::CPR; i += NT) {
     const int r = i / L::CPR, c = i - r * L::CPR;
     const int gr = row0 + r;
     const bool ok = gr < n_rows;

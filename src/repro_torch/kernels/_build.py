@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc + ctypes.
 
 Each kernel family becomes its own shared library with a plain C
-interface, from one translation unit or several (`UNITS`: K2 / K3's and
-K4's head dims are split over units so that nvcc compiles them in
+interface, from one translation unit or several (`UNITS`: K2 / K3's,
+K4's and K5's head dims are split over units so that nvcc compiles them in
 parallel). Each unit is compiled on its own, then the library is linked:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
@@ -45,6 +45,7 @@ UNITS = {
                       "flashd_decode_hd256"),
     "flashd_varlen": ("flashd_varlen", "flashd_varlen_hd96", "flashd_varlen_hd128",
                       "flashd_varlen_hd256"),
+    "flashd_bwd": ("flashd_bwd", "flashd_bwd_hd256"),
 }
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -2,7 +2,9 @@
 
 Replaces the Pallas TPU kernel `repro/kernels/flashd_bwd.py::flashd_bwd_pallas`
 (`_recompute_p_ds`, `_dq_kernel`, `_dkv_kernel` and their two
-`pallas_call`s). The CUDA source is `csrc/flashd_bwd.cu`.
+`pallas_call`s). The CUDA sources are `csrc/flashd_bwd.cu` (the design and
+head dims 16–128), `csrc/flashd_bwd.cuh` (the kernels) and
+`csrc/flashd_bwd_hd256.cu` (head dim 256).
 
 From the forward's saved (O, Λ) it recomputes P = exp(s − Λ) — exact, with
 an exponent ≤ 0, so no max pass — and returns dQ = dS·K, dK = dSᵀ·Q,
@@ -13,7 +15,9 @@ Design. K1's tensor-core tile machine turned around, with two kernels and
 no atomics (the TPU's split): a dQ kernel with a CTA per (q block of 64
 rows, q head, batch row) looping over the KV tiles, and a dK/dV kernel with
 a CTA per (KV block of 64 keys, kv head, batch row) looping over its G q
-heads × q tiles, so GQA's group sum stays in registers. Keys are the rows
+heads × q tiles, so GQA's group sum stays in registers. At head dim 256 the
+dQ kernel's KV tiles and the dK/dV kernel's KV blocks are 32 keys, and f32
+runs a one-stage ring, so that registers and shared memory fit. Keys are the rows
 of the dK/dV products, so Pᵀ and dSᵀ come out of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
 already in the layout the next product takes. All five products run on
 the tensor cores (mma.sync): bf16 operands with P and dS rounded to bf16,
@@ -48,9 +52,9 @@ from repro_torch.kernels.flashd_fwd import _MASK_KINDS, check_copy_alignment, ch
 
 __all__ = ["flashd_bwd", "flashd_bwd_plain", "HEAD_DIMS", "launches"]
 
-# K5's head dims: not 256, whose dQ kernel would stage 6 f32 tiles of
-# 64 × 260 (399,360 B) against the 227 KB a block may hold
-HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+# K5's head dims; 256 runs its own tile plan (csrc/flashd_bwd.cu), built in
+# a translation unit of its own (csrc/flashd_bwd_hd256.cu)
+HEAD_DIMS = (16, 32, 48, 64, 96, 128, 256)
 
 launches = 0
 _fn = None

@@ -64,6 +64,12 @@ def _decay_mask(params, cfg: AdamWConfig):
     return tree_unflatten_like(params, mask)
 
 
+# elements of a leaf updated in one pass: the pass's f32 temporaries stay
+# ~256 MB each whatever the leaf's size (recurrentgemma-9b's embedding and head
+# are 1.05 B parameters: whole-leaf temporaries of 4.2 GB each)
+UPDATE_CHUNK = 1 << 26
+
+
 def apply_updates(
     params,
     grads,
@@ -71,29 +77,44 @@ def apply_updates(
     cfg: AdamWConfig,
     lr: Optional[torch.Tensor] = None,
 ):
-    """One AdamW step. Returns (new_params, new_opt, metrics)."""
+    """One AdamW step. Returns (new_params, new_opt, metrics).
+
+    Leaf by leaf, UPDATE_CHUNK elements at a time: each element's clipped
+    gradient, new moments and new parameter come from the reference's
+    expressions in its order, so the values are those of whole-tree passes,
+    while what lives at once is the old and new parameters and moments and
+    the gradients (20 B a parameter with bf16 moments) — no clipped copy of
+    every gradient, no whole-leaf temporaries."""
     lr = cfg.lr if lr is None else lr
     step = opt.step + 1
 
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    grads = tree_map(lambda g: g.float() * scale, grads)
-
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
-    m_dt = tree_leaves(opt.m)[0].dtype
-    new_m = tree_map(lambda m, g: (cfg.b1 * m.float() + (1 - cfg.b1) * g).to(m_dt), opt.m, grads)
-    new_v = tree_map(lambda v, g: (cfg.b2 * v.float() + (1 - cfg.b2) * g * g).to(v.dtype),
-                     opt.v, grads)
-    decay = _decay_mask(params, cfg)
 
-    def upd(p, m, v, d):
-        mhat = m.float() / b1c
-        vhat = v.float() / b2c
-        step_ = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * d * p.float()
-        return (p.float() - lr * step_).to(p.dtype)
+    def update(p, g, m, v, d):
+        out = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (p, m, v)]
+        flat = [x.reshape(-1) for x in (p, g, m, v)]
+        new_p, new_m, new_v = (x.view(-1) for x in out)
+        for i in range(0, p.numel(), UPDATE_CHUNK):
+            at = slice(i, i + UPDATE_CHUNK)
+            p_, g_, m_, v_ = (x[at] for x in flat)
+            g_ = g_.float() * scale
+            # each last operation writes its chunk of the output, rounding
+            # to the output's dtype as `.to` would: no temporary to copy
+            torch.add(cfg.b1 * m_.float(), (1 - cfg.b1) * g_, out=new_m[at])
+            torch.add(cfg.b2 * v_.float(), (1 - cfg.b2) * g_ * g_, out=new_v[at])
+            mhat = new_m[at].float() / b1c
+            vhat = new_v[at].float() / b2c
+            step_ = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * d * p_.float()
+            torch.sub(p_.float(), lr * step_, out=new_p[at])
+        return out
 
-    new_params = tree_map(upd, params, new_m, new_v, decay)
+    leaves = [update(*x) for x in zip(*(tree_leaves(t) for t in
+                                        (params, grads, opt.m, opt.v, _decay_mask(params, cfg))))]
+    new_params, new_m, new_v = (tree_unflatten_like(params, [x[i] for x in leaves])
+                                for i in range(3))
     metrics = {"grad_norm": gnorm, "lr": torch.as_tensor(lr, dtype=torch.float32,
                                                          device=gnorm.device)}
     return new_params, OptState(new_m, new_v, step), metrics

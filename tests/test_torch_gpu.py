@@ -158,7 +158,7 @@ def test_bwd_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128])
+@pytest.mark.parametrize("d", [16, 32, 48, 64, 96, 128, 256])
 def test_bwd_kernel_head_dims(cuda, d, dtype):
     gen = torch.Generator(device=cuda).manual_seed(d)
     m = tb.MaskSpec("causal")
@@ -1063,6 +1063,48 @@ def test_train_step_kernel_path_matches_plain(cuda, impl):
     assert dev <= 1e-3 * upd, (dev, upd)
 
 
+def test_adamw_chunked_update_is_the_whole_tree_update(cuda, monkeypatch):
+    """AdamW on the card, each leaf in passes that write their outputs in
+    place (`optim.adamw.UPDATE_CHUNK`, here 1000 elements: ragged on a
+    4099-element leaf) against the reference's expressions as whole-tree
+    passes: the same bits in f32 and bf16 optimizer state over two steps."""
+    from repro_torch.optim import adamw
+
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    params = {"embed": torch.randn(4099, generator=gen, device=cuda),
+              "norm": torch.randn(7, generator=gen, device=cuda),
+              "w": torch.randn(3, 40, 33, generator=gen, device=cuda)}
+    grads = [{k: torch.randn(x.shape, generator=gen, device=cuda) for k, x in params.items()}
+             for _ in range(2)]
+    cfg, lr = adamw.AdamWConfig(clip_norm=50.0), torch.tensor(1e-2, device=cuda)
+
+    def whole_tree(p, g, o):
+        step = o.step + 1
+        gn = adamw.global_norm(g)
+        scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
+        b1c, b2c = 1.0 - cfg.b1 ** step.float(), 1.0 - cfg.b2 ** step.float()
+        g = {k: x.float() * scale for k, x in g.items()}
+        m = {k: (cfg.b1 * o.m[k].float() + (1 - cfg.b1) * g[k]).to(o.m[k].dtype) for k in g}
+        v = {k: (cfg.b2 * o.v[k].float() + (1 - cfg.b2) * g[k] * g[k]).to(o.v[k].dtype)
+             for k in g}
+        d = adamw._decay_mask(p, cfg)
+        new = {k: (p[k].float() - lr * ((m[k].float() / b1c)
+                                        / (torch.sqrt(v[k].float() / b2c) + cfg.eps)
+                                        + cfg.weight_decay * d[k] * p[k].float())).to(p[k].dtype)
+               for k in p}
+        return new, adamw.OptState(m, v, step)
+
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 1000)
+    for state_dtype in (None, "bfloat16"):
+        runs = []
+        for fn in (whole_tree, lambda p, g, o: adamw.apply_updates(p, g, o, cfg, lr=lr)[:2]):
+            p, o = params, adamw.init_opt(params, state_dtype=state_dtype)
+            for g in grads:
+                p, o = fn(p, g, o)
+            runs.append(tree_leaves(p) + tree_leaves(o.m) + tree_leaves(o.v))
+        assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(*runs))
+
+
 def test_decode_kernel_every_row_at_full_length(cuda):
     """K2 as cross attention reads it: cache_len equal to the buffer's
     length T in every row (the encoder memory), G 1, at the seamless smoke
@@ -1526,6 +1568,54 @@ def test_tc_fwd_kernels_hold_f32_at_large_scores_at_head_dim_256(cuda):
             o, lam = fwd(q, k, v, mask=m)
             err = max(float((o - o_t).abs().max()), float((lam - lam_t).abs().max()))
             assert err <= min(TOL, plain_err), (fwd.__name__, m.kind, err, plain_err)
+
+
+BWD_256_CASES = [
+    # (mask kind, window, q_offset, sq, skv): recurrentgemma-9b's local mask
+    # across several 32-key tiles; dead leading rows; ragged keys
+    ("local", 40, 0, 150, 150),
+    ("causal", 0, -12, 90, 90),
+    ("full", 0, 0, 70, 170),
+]
+
+
+@pytest.mark.parametrize("case", BWD_256_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernel_at_head_dim_256(cuda, case, dtype):
+    """K5 at head dim 256 over a group of 16 (Hq 16 over Hkv 1, as
+    recurrentgemma-9b): the dQ kernel's 32-key tiles and the dK/dV
+    kernel's 32-key blocks (f32 one-stage rings, bf16 two) against the
+    plain version; dead rows get no gradient; a repeat call is bitwise
+    equal."""
+    kind, window, q_offset, sq, skv = case
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + window)
+    m = tb.MaskSpec(kind, window, 0, q_offset)
+    args = _bwd_operands(gen, cuda, 1, 1, 16, sq, skv, 256, m, dtype)
+    got = k5.flashd_bwd(*args, mask=m)
+    _grads_close(got, k5.flashd_bwd_plain(*args, mask=m), dtype)
+    for a, b_ in zip(got, k5.flashd_bwd(*args, mask=m)):
+        assert torch.equal(a, b_)
+    if q_offset < 0:
+        assert (got[0][:, :, :-q_offset] == 0).all()
+
+
+def test_bwd_kernel_holds_f32_at_large_scores_at_head_dim_256(cuda):
+    """As `test_bwd_kernel_holds_f32_at_large_scores`, at head dim 256 over
+    Hq 4 / Hkv 1, causal and local (recurrentgemma-9b's mask): q and k ×4,
+    f32, S 512, the kernel's excess over rtol 1e-4 against float64 within
+    atol 1e-5 or within the plain version's own."""
+    gen = torch.Generator(device=cuda).manual_seed(46)
+    q = torch.randn(1, 512, 4, 256, generator=gen, device=cuda).transpose(1, 2) * 4
+    k = torch.randn(1, 512, 1, 256, generator=gen, device=cuda).transpose(1, 2) * 4
+    v = torch.randn(1, 512, 1, 256, generator=gen, device=cuda).transpose(1, 2)
+    do = torch.randn(1, 512, 4, 256, generator=gen, device=cuda).transpose(1, 2)
+    for m in (tb.MaskSpec("causal"), tb.MaskSpec("local", window=200)):
+        o, lam = k1.flashd_fwd_plain(q, k, v, mask=m)
+        args = (q, k, v, o, lam, do)
+        for got, plain, exact in zip(k5.flashd_bwd(*args, mask=m),
+                                     k5.flashd_bwd_plain(*args, mask=m), _bwd_f64(*args, m)):
+            assert _excess(got, exact) <= max(1e-5, _excess(plain, exact)), (
+                m.kind, _excess(got, exact), _excess(plain, exact))
 
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8, 12, 16])

@@ -12,15 +12,16 @@ cores. That changes how operands are rounded, not what is computed:
 This file emulates that operand rounding in torch (each product summed in
 float64 and rounded to f32 once, so only the operands' rounding and the
 per-tile f32 accumulation of the gradients are modelled), runs it through
-the kernels' tile loops — dQ over 64-key tiles, dK and dV over the G heads
-× 64-row q tiles — and holds dQ, dK and dV against the JAX reference's
+the kernels' tile loops — dQ over 64-key tiles (32 at head dim 256, the
+d-256 tile plan of `csrc/flashd_bwd.cuh`), dK and dV over the G heads ×
+64-row q tiles — and holds dQ, dK and dV against the JAX reference's
 backward from saved (O, Λ), `repro.core.blockwise.blockwise_backward`
 (one call per q head, dK and dV summed over the group; O and Λ from
 `repro.kernels.ref.attention_ref`), as the port's parity tests take it:
 rtol 1e-4 / atol 1e-5 per entry in f32, 2^-7·max|grad| in bf16 (on the
 same bf16-valued inputs, the reference in f32); on scores of ordinary and
-of large magnitude (q and k scaled ×4, scores up to ±60), head dims 48 and
-128, a causal mask with and without dead leading rows. At ×1 the f32
+of large magnitude (q and k scaled ×4, scores up to ±60), head dims 48,
+128 and 256, a causal mask with and without dead leading rows. At ×1 the f32
 emulation is also held to `jax.grad` of `attention_ref` itself.
 
 At ×4 no two f32 evaluations of the backward agree within atol 1e-5: the
@@ -44,7 +45,12 @@ from test_torch_tc_numerics import _matmul
 
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 GRAD_BF16 = 2.0 ** -7
-TILE = 64  # the kernels' q and KV tiles
+TILE = 64  # the kernels' q tiles, and the dQ kernel's KV tiles up to head dim 128
+
+
+def key_tile(d):
+    """The dQ kernel's KV tile: 32 keys at head dim 256 (`Plan::DQ_BN`)."""
+    return TILE if d <= 128 else 32
 
 
 def _mm(a, b, mode):
@@ -62,22 +68,23 @@ def flashd_bwd_tc_emulated(q, k, v, lam, do, dsum, mask: tb.MaskSpec, mode: str)
     scale = 1.0 / d ** 0.5
     dead = tb.NEG_INF / 2
 
-    def p_ds(qt, dot, lamt, dsumt, q0, k0):
-        """P and dS of a (q tile, key tile) pair, rows = q."""
-        s = _mm(qt, k[k0:k0 + TILE].T, mode) * scale
-        keep = mask.keep(torch.arange(q0, q0 + qt.shape[-2]), torch.arange(k0, min(k0 + TILE, skv)))
+    def p_ds(qt, dot, lamt, dsumt, q0, k0, bk=TILE):
+        """P and dS of a (q tile, key tile of bk keys) pair, rows = q."""
+        s = _mm(qt, k[k0:k0 + bk].T, mode) * scale
+        keep = mask.keep(torch.arange(q0, q0 + qt.shape[-2]), torch.arange(k0, min(k0 + bk, skv)))
         live = keep & (lamt > dead)[..., None]
         p = torch.where(live, torch.exp(s - lamt[..., None]), torch.zeros_like(s))
-        dp = _mm(dot, v[k0:k0 + TILE].T, mode)
+        dp = _mm(dot, v[k0:k0 + bk].T, mode)
         ds = p * (dp - dsumt[..., None]) * scale
         if mode == "bf16":  # rounded to bf16 for the mma that takes them
             return p.bfloat16().float(), ds.bfloat16().float()
         return p, ds
 
     dq = torch.zeros_like(q)  # the dQ kernel: per q block, over the KV tiles
-    for k0 in range(0, skv, TILE):
-        _, ds = p_ds(q, do, lam, dsum, 0, k0)
-        dq = dq + _mm(ds, k[k0:k0 + TILE], mode)
+    bk = key_tile(d)
+    for k0 in range(0, skv, bk):
+        _, ds = p_ds(q, do, lam, dsum, 0, k0, bk)
+        dq = dq + _mm(ds, k[k0:k0 + bk], mode)
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)  # the dK/dV kernel: per KV block
     for k0 in range(0, skv, TILE):
         for h in range(g_):  # the group's heads, then the q tiles
@@ -125,7 +132,7 @@ def _excess(a, exact):
 
 @pytest.mark.parametrize("q_offset", [0, -12])  # -12: dead leading rows
 @pytest.mark.parametrize("magnitude", [1.0, 4.0])
-@pytest.mark.parametrize("d", [48, 128])
+@pytest.mark.parametrize("d", [48, 128, 256])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_tc_bwd_operand_rounding_holds_the_bounds(dtype, d, magnitude, q_offset):
     q, k, v, do = _inputs(d, magnitude, dtype)

@@ -173,6 +173,58 @@ def test_adamw_and_schedule_match_the_reference():
                 == pytest.approx(float(jschedule.warmup_cosine(step, **kw)), rel=1e-6))
 
 
+def _adamw_whole_tree(params, grads, opt, cfg, lr):
+    """The reference's AdamW as whole-tree passes, one expression a tree."""
+    step = opt.step + 1
+    gnorm = tadamw.global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    grads = tree_map(lambda g: g.float() * scale, grads)
+    b1c = 1.0 - cfg.b1 ** step.float()
+    b2c = 1.0 - cfg.b2 ** step.float()
+    m = tree_map(lambda m, g: (cfg.b1 * m.float() + (1 - cfg.b1) * g).to(m.dtype), opt.m, grads)
+    v = tree_map(lambda v, g: (cfg.b2 * v.float() + (1 - cfg.b2) * g * g).to(v.dtype), opt.v,
+                 grads)
+
+    def upd(p, m, v, d):
+        step_ = (m.float() / b1c) / (torch.sqrt(v.float() / b2c) + cfg.eps) \
+            + cfg.weight_decay * d * p.float()
+        return (p.float() - lr * step_).to(p.dtype)
+
+    return (tree_map(upd, params, m, v, tadamw._decay_mask(params, cfg)),
+            tadamw.OptState(m, v, step))
+
+
+def test_adamw_chunked_update_is_the_whole_leaf_update(monkeypatch):
+    """`apply_updates` walks each leaf in passes of UPDATE_CHUNK elements
+    (bounded temporaries beside a 1 B-parameter leaf), each pass writing its
+    outputs in place: at the default chunk and at passes of 5 elements —
+    ragged on every leaf, a gradient given as a transposed view — it gives
+    the bits of the reference's expressions as whole-tree passes, in f32
+    and bf16 optimizer state, over two steps."""
+    rng = np.random.default_rng(1)
+    params = {"embed": torch.from_numpy(rng.standard_normal((16, 9)).astype(np.float32)),
+              "final_norm": torch.from_numpy(rng.standard_normal(7).astype(np.float32)),
+              "blocks": {"pos0": {"wq": torch.from_numpy(
+                  rng.standard_normal((2, 8, 8)).astype(np.float32))}}}
+    grads = [tree_map(lambda x: torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32)),
+                      params) for _ in range(2)]
+    grads[1]["embed"] = torch.from_numpy(rng.standard_normal((9, 16)).astype(np.float32)).T
+    cfg = tadamw.AdamWConfig(clip_norm=2.0)
+    lr = torch.tensor(1e-2)
+    for state_dtype in (None, "bfloat16"):
+        p, o = params, tadamw.init_opt(params, state_dtype=state_dtype)
+        for g in grads:
+            p, o = _adamw_whole_tree(p, g, o, cfg, lr)
+        want = tree_leaves(p) + tree_leaves(o.m) + tree_leaves(o.v)
+        for chunk in (tadamw.UPDATE_CHUNK, 5):
+            monkeypatch.setattr(tadamw, "UPDATE_CHUNK", chunk)
+            p, o = params, tadamw.init_opt(params, state_dtype=state_dtype)
+            for g in grads:
+                p, o, _ = tadamw.apply_updates(p, g, o, cfg, lr=lr)
+            got = tree_leaves(p) + tree_leaves(o.m) + tree_leaves(o.v)
+            assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_synthetic_batches_are_the_reference_bytes():
     for kw in (dict(vocab_size=512, seq_len=16, global_batch=4, seed=3),
                dict(vocab_size=97, seq_len=9, global_batch=6, seed=0, host_index=1,

@@ -3,31 +3,46 @@ Hq 16 over Hkv 1 of head dim 256; qwen3-moe-235b-a22b: Hq 64 over Hkv 4,
 G 16), on the CPU.
 
 The plain versions of K1 (`flashd_fwd_plain`), K2 (`flashd_decode_plain`),
-K3 (`flashd_decode_paged_plain`) and K4 (`flashd_varlen_plain`) against the
-reference's Pallas kernels run in interpret mode, at small lengths: K1
-under the local and chunked masks, K2 with a window and `start`, K3 on an
-int8 pool, K4 on a mixed pack; the copied tuning heuristics at these
-shapes against the reference's; and the shape choices the kernels' host
-code makes there (`decode_rows`, `_row_groups`, the translation units a
-head dim is built in). The CUDA kernels at these shapes are held to these
-plain versions in tests/test_torch_gpu.py (on the card).
+K3 (`flashd_decode_paged_plain`), K4 (`flashd_varlen_plain`) and K5
+(`flashd_bwd_plain`) against the reference's Pallas kernels run in
+interpret mode, at small lengths: K1 under the local and chunked masks, K2
+with a window and `start`, K3 on an int8 pool, K4 on a mixed pack, K5
+under the local mask and with dead leading rows; one train step of a
+recurrentgemma-shaped stack with head dim 256 against the reference's; the
+copied tuning heuristics at these shapes against the reference's; and the
+shape choices the kernels' host code makes there (`decode_rows`,
+`_row_groups`, the translation units a head dim is built in). The CUDA
+kernels at these shapes are held to these plain versions in
+tests/test_torch_gpu.py (on the card).
 
-Tolerance: O and Λ within 5e-5 in f32 (summation order only)."""
+Tolerance: O and Λ within 5e-5 in f32 (summation order only); gradients
+rtol 1e-4 / atol 1e-5; the train step's loss, grad norm and parameters
+within 1e-4 relative (`tests/test_torch_archs_train.py`'s REL)."""
 
 import dataclasses
 import itertools
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_smoke_config as j_get_smoke_config
 from repro.core import blockwise as jb
+from repro.data import DataConfig as JDataConfig
+from repro.data import SyntheticLM as JSyntheticLM
 from repro.kernels import tuning as jtune
+from repro.kernels.flashd_bwd import flashd_bwd_pallas
 from repro.kernels.flashd_decode import flashd_decode_paged_pallas, flashd_decode_pallas
 from repro.kernels.flashd_fwd import flashd_fwd_pallas
 from repro.kernels.flashd_varlen import flashd_varlen_pallas
+from repro.kernels.ref import attention_ref
+from repro.models import get_model as j_get_model
+from repro.optim import adamw as jadamw
+from repro.train import train_step as jts
+from repro_torch import bridge
 from repro_torch.core import blockwise as tb
 from repro_torch.kernels import _build
 from repro_torch.kernels import flashd_bwd as k5
@@ -35,8 +50,12 @@ from repro_torch.kernels import flashd_decode as k2
 from repro_torch.kernels import flashd_fwd as k1
 from repro_torch.kernels import flashd_varlen as k4
 from repro_torch.kernels import tuning as ttune
+from repro_torch.optim import adamw as tadamw
+from repro_torch.train import train_step as tts
 
 TOL = 5e-5
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
+REL = 1e-4  # tests/test_torch_archs_train.py
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -201,6 +220,93 @@ def test_varlen_plain_on_a_mixed_pack_matches_pallas_interpret(group, d, int8):
         assert (got[_t(q_pos) < 0] == 0).all()
 
 
+BWD_CASES = [
+    # (mask kind, window, q_offset, sq, skv)
+    ("local", 20, 0, 49, 49),  # recurrentgemma-9b's mask, the window crossed
+    ("causal", 0, -9, 40, 40),  # dead leading rows
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_bwd_plain_matches_pallas_interpret_at_head_dim_256(case):
+    """K5's plain version at head dim 256 over a group of 16 (Hq 16 over
+    Hkv 1) against `flashd_bwd_pallas` in interpret mode on the same saved
+    (O, Λ): dQ, dK, dV within rtol 1e-4 / atol 1e-5; dead rows get none."""
+    kind, window, q_offset, sq, skv = case
+    rng = np.random.default_rng(sq + window)
+    shapes = ((1, 16, sq, 256), (1, 1, skv, 256), (1, 1, skv, 256), (1, 16, sq, 256))
+    q, k, v, do = (rng.standard_normal(sh).astype(np.float32) for sh in shapes)
+    jm = jb.MaskSpec(kind, window, 0, q_offset)
+    o, lam = attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=jm)
+    args = (q, k, v, np.asarray(o), np.asarray(lam), do)
+    want = flashd_bwd_pallas(*(jnp.asarray(x) for x in args), mask=jm, block_q=16, block_k=16,
+                             interpret=True)
+    got = k5.flashd_bwd_plain(*(_t(x) for x in args), mask=tb.MaskSpec(kind, window, 0, q_offset),
+                              block_q=16, block_k=16)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    if q_offset < 0:
+        assert (got[0][:, :, :-q_offset] == 0).all()
+
+
+LR = 1e-2
+STEP_REL = 2.0 ** -10  # a leaf's step against the reference's (see below)
+
+
+def test_train_step_at_head_dim_256_matches_reference():
+    """One train step of a recurrentgemma-shaped stack — one period
+    (rglru, rglru, attn_local), Hq 16 over Hkv 1 of head dim 256, window 8
+    crossed by 24 tokens — with the knobs `chip_smoke.py` phase 21 trains
+    recurrentgemma-9b with (bf16 AdamW moments, no numerics guard, the lr
+    at its peak at step 0), f32, on the reference's weights and batch:
+    loss and grad norm within REL relative; every parameter of the port
+    updated; the updated tree within REL of its norm; and each leaf's step
+    (new − old) within STEP_REL of the reference's step's norm. A moment
+    within f32 noise of a bf16 rounding boundary rounds one bf16 ulp (at
+    most 2^-7 relative) apart in the two packages, which moves that
+    entry's first step lr·m̂/√v̂ by at most 2^-7 + 2^-8 of it; such flips
+    are rare, and which leaves they touch follows the intra-op thread
+    count's f32 noise: measured steps within 3.35e-4 of the reference's
+    (`final_norm`, `pos0.norm2`: 64 entries that start at zero, so also
+    3.35e-4 of their norm; one thread and two), 1.5e-4 with f32 moments.
+    A leaf left alone, or stepped with a wrong sign, lr, bias correction or
+    clip, is off by O(1) of its step; a wrong decay mask by wd·|p| ≈ 3e-3
+    of it here."""
+    jcfg = dataclasses.replace(j_get_smoke_config("recurrentgemma-9b"), dtype="float32",
+                               n_layers=3, n_heads=16, n_kv_heads=1, head_dim=256)
+    tcfg = bridge.config_from_reference(jcfg)
+    knobs = dict(warmup_steps=0, total_steps=10, opt_state_dtype="bfloat16",
+                 numerics_guard=False)
+    jtc = jts.TrainConfig(optimizer=jadamw.AdamWConfig(lr=LR), **knobs)
+    ttc = tts.TrainConfig(optimizer=tadamw.AdamWConfig(lr=LR), **knobs)
+    jp = j_get_model(jcfg).init(jax.random.PRNGKey(0), jcfg)
+    jstate = jts.init_train_state(jax.random.PRNGKey(0), jcfg, jtc)._replace(params=jp)
+    tstate = tts.init_train_state(
+        tcfg, ttc, params=bridge.params_from_numpy(jax.tree.map(np.asarray, jp)))
+    batch = JSyntheticLM(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=24,
+                                     global_batch=2)).batch(0)
+    jnew, jm = jax.jit(jts.make_train_step(jcfg, jtc))(jstate, jax.tree.map(jnp.asarray, batch))
+    tnew, tm = tts.make_train_step(tcfg, ttc)(tstate, {k_: torch.from_numpy(x)
+                                                       for k_, x in batch.items()})
+    for key in ("loss", "grad_norm"):
+        assert abs(float(jm[key]) - float(tm[key])) <= REL * abs(float(jm[key])), key
+    leaves = lambda tree: dict(jax.tree_util.tree_leaves_with_path(tree))
+    before = leaves(jax.tree.map(np.asarray, jp))
+    want = leaves(jax.tree.map(np.asarray, jnew.params))
+    got = leaves(bridge.params_to_numpy(tnew.params))
+    assert sorted(map(str, got)) == sorted(map(str, want))
+    for path, w in want.items():
+        name = jax.tree_util.keystr(path)
+        assert not np.array_equal(got[path], before[path]), name  # lr > 0
+        assert not np.array_equal(w, before[path]), name
+        step = w.astype(np.float64) - before[path]
+        gap = got[path].astype(np.float64) - w
+        assert np.sum(gap ** 2) <= STEP_REL ** 2 * np.sum(step ** 2), name
+    diff = sum(np.sum((got[p].astype(np.float64) - w) ** 2) for p, w in want.items())
+    norm = sum(np.sum(w.astype(np.float64) ** 2) for w in want.values())
+    assert diff <= REL ** 2 * norm, np.sqrt(diff / norm)
+
+
 def test_tuning_heuristics_are_the_reference_at_head_dim_256_and_group_16():
     """The copied heuristics make the reference's choices at these shapes:
     prefill blocks, decode splits (recurrentgemma-9b's window 2048 too),
@@ -249,19 +355,26 @@ def test_varlen_row_groups_at_groups_above_8():
 
 def test_every_head_dim_is_built_in_one_unit():
     """K1–K4 and K6 take the head dims of `flashd_fwd.HEAD_DIMS`, K5 those
-    of `flashd_bwd.HEAD_DIMS`; K2 / K3's and K4's head dims are split over
-    translation units that nvcc builds at once, each head dim instantiated
-    in exactly one of them."""
-    assert 256 in k1.HEAD_DIMS and set(k5.HEAD_DIMS) <= set(k1.HEAD_DIMS)
+    of `flashd_bwd.HEAD_DIMS` (256 since K5's d-256 tile plan); K2 / K3's,
+    K4's and K5's head dims are split over translation units that nvcc
+    builds at once, each head dim instantiated in exactly one of them (K5's
+    256 in its own) and dispatched by a `case` of the entry point's
+    switch."""
+    assert 256 in k1.HEAD_DIMS and 256 in k5.HEAD_DIMS and set(k5.HEAD_DIMS) <= set(k1.HEAD_DIMS)
     assert k2.MAX_GROUP == 16
-    for lib, macro in (("flashd_decode", "FLASHD_DECODE_HD"), ("flashd_varlen", "FLASHD_VARLEN_HD")):
+    for lib, macro, dims in (("flashd_decode", "FLASHD_DECODE_HD", k1.HEAD_DIMS),
+                             ("flashd_varlen", "FLASHD_VARLEN_HD", k1.HEAD_DIMS),
+                             ("flashd_bwd", "FLASHD_BWD_HD", k5.HEAD_DIMS)):
         units = _build.UNITS[lib]
         assert units[0] == lib
-        seen = []
+        seen = {}
         for unit in units:
             text = (_build.CSRC / f"{unit}.cu").read_text()
-            seen += [int(x) for x in re.findall(macro + r"\((\d+)\) \{", text)]
-        assert sorted(seen) == sorted(k1.HEAD_DIMS), (lib, seen)
+            seen[unit] = [int(x) for x in re.findall(macro + r"\((\d+)\) \{", text)]
+        assert sorted(sum(seen.values(), [])) == sorted(dims), (lib, seen)
+        if lib == "flashd_bwd":
+            assert [u for u, found in seen.items() if 256 in found] == ["flashd_bwd_hd256"]
+            assert seen["flashd_bwd_hd256"] == [256]
     for lib in ("flashd_fwd", "fa2_fwd", "flashd_bwd"):
         text = (_build.CSRC / f"{lib}.cu").read_text()
         dims = [int(x) for x in re.findall(r"case (\d+): return", text)]

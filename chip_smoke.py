@@ -170,6 +170,14 @@ non-zero:
      contiguous, paged and mixed loops, kernel = plain tokens in each, K2,
      K3 and K4 launched at G 16 and each held to plain (and timed) on the
      served cache or pool;
+ 22. the sharded train step (`repro_torch.distributed`) on a 1-rank NCCL
+     process group and a (1, 1) ('data', 'model') mesh (`_sharded_phase`):
+     phase 12's qwen3-0.6b (full width, QWEN_LAYERS layers, f32, B 2 x S
+     1024), 2 sharded steps against 2 unsharded ones from the same init —
+     loss and grad norm within TRAIN_REL, each parameter leaf's largest
+     relative gap printed, K1 and K5 launched through the attention island
+     with the plain routes refused, K6 not launched; host and device-busy
+     ms per step of both;
  14. (last) the kernels line (JSON) and the total seconds, then the result
      line (JSON).
 
@@ -2032,6 +2040,111 @@ def _qwen3moe_phase(dev, card: str, flush):
     return text, launched, rows
 
 
+def _sharded_phase(dev, bt: int = 2, st: int = 1024):
+    """Phase 22: the sharded train step (`repro_torch.distributed`) on a
+    1-rank NCCL process group and a (1, 1) ('data', 'model') mesh, against
+    the unsharded step, at phase 12's model and batches (qwen3-0.6b at full
+    width, QWEN_LAYERS layers, f32, B bt x S st, K1 forward and K5
+    backward): 2 unsharded steps from the seeded init, then 2 sharded ones
+    from the same init (one state freed before the next is made). Loss and
+    grad norm per step within TRAIN_REL, every parameter leaf's largest
+    relative gap printed, K1 and K5 launched in the sharded steps (through
+    the attention island, on each rank's local heads), K6 not, and no
+    plain route taken (the plain fallbacks raise while the sharded steps
+    run). Host and device-busy ms per step of both, reported. Returns
+    (text, {kernel: sharded launches})."""
+    import logging
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.devices import make_mesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+    from repro_torch.train.train_step import train_state_specs
+    from repro_torch.tree import tree_flatten_with_names
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=QWEN_LAYERS, dtype="float32",
+                              attn_impl="flashd_gpu")
+    tc = TrainConfig(warmup_steps=0, total_steps=4)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=st, global_batch=bt, seed=0))
+    batches = [{k: torch.as_tensor(x, device=dev) for k, x in data.batch(i).items()}
+               for i in range(2)]
+    store = os.path.join(HERE, "build", f"phase22_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    # DTensor warns of two all-reduces where a mesh of two dims reduces a
+    # scalar: trivial on one rank
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+    ctx = shd.ShardingCtx(mesh)
+
+    def run(step, state):
+        curve, secs = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            curve.append(torch.stack([m["loss"], m["grad_norm"]]).tolist())
+            secs.append(time.perf_counter() - t)
+        return state, curve, secs
+
+    step_u = make_train_step(cfg, tc)
+    state, curve_u, secs_u = run(step_u, init_train_state(cfg, tc, device=dev, seed=0))
+    prof_u = _breakdown("unsharded", lambda: step_u(state, batches[0]), steps=2, train=True)
+    params_u = dict(tree_flatten_with_names(state.params))
+    del state
+    gc.collect()
+
+    with shd.activate(ctx):
+        state = init_train_state(cfg, tc, device=dev, seed=0)
+        state = shd.distribute_tree(state, train_state_specs(state))
+        step_s = shd.sharded(make_train_step(cfg, tc), (None, shd.batch_specs(batches[0])))
+    plain = dict(ops._FALLBACKS)
+
+    def refuse(name):
+        def fallback(*args, **kwargs):
+            raise AssertionError(f"phase 22: the plain {name} route ran in a sharded step")
+        return fallback
+
+    ops._FALLBACKS.update({name: refuse(name) for name in plain})
+    _zero_launches()
+    state, curve_s, secs_s = run(step_s, state)
+    launched = _launches()
+    ops._FALLBACKS.update(plain)
+    assert launched["flashd_fwd"] > 0 and launched["flashd_bwd"] > 0, launched
+    assert launched["fa2_fwd"] == 0, launched
+    prof_s = _breakdown("sharded", lambda: step_s(state, batches[0]), steps=2, train=True)
+    for i, (a, w) in enumerate(zip(curve_s, curve_u)):
+        rel = TRAIN_REL[0] if i == 0 else TRAIN_REL[1]
+        for x, y, what in ((a[0], w[0], "loss"), (a[1], w[1], "grad norm")):
+            assert np.isfinite(x) and abs(x - y) <= rel * abs(y), ("phase 22", i, what, x, y)
+    gaps = {}
+    for name, x in tree_flatten_with_names(state.params):
+        x, want = x.full_tensor(), params_u[name]
+        gaps[name] = float((x - want).abs().max() / want.abs().max().clamp(min=1e-30))
+    rel_curve = max(abs(a[j] - w[j]) / abs(w[j]) for a, w in zip(curve_s, curve_u) for j in (0, 1))
+    del state, params_u, step_s
+    dist.destroy_process_group()
+    os.remove(store)
+    text = (f"sharded train step, 1-rank NCCL group, mesh {dict(ctx.axis_sizes)}: qwen3-0.6b f32 "
+            f"{cfg.n_layers} layers B {bt} x S {st}, 2 steps each: loss/grad norm sharded "
+            f"{curve_s}, unsharded {curve_u}, largest relative gap {rel_curve:.2e} (bounds "
+            f"{TRAIN_REL[0]} at step 0, {TRAIN_REL[1]} after); each parameter leaf's largest "
+            f"gap over its largest entry {', '.join(f'{n} {g:.2e}' for n, g in gaps.items())}; "
+            f"launches in the sharded steps "
+            f"{launched}, plain routes refused; seconds per step sharded "
+            f"{[round(x, 3) for x in secs_s]}, unsharded {[round(x, 3) for x in secs_u]}; "
+            f"{prof_s}; {prof_u}")
+    return text, launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3344,6 +3457,12 @@ def main() -> int:
     qm_text, qm_launches, qm_rows = _qwen3moe_phase(dev, card, flush)
     _line(21, f"{qm_text} {ph}")
 
+    # ---- 22. the sharded train step on a 1-rank NCCL mesh ----
+    ph = _Phase()
+    gc.collect()
+    sh_text, sh_launches = _sharded_phase(dev)
+    _line(22, f"{sh_text} {ph}")
+
     # ---- 14. kernels line, result line ----
     kernels = [
         {"name": "flashd_fwd", "route": "cuda", "source": "src/repro_torch/csrc/flashd_fwd.cu",
@@ -3454,6 +3573,9 @@ def main() -> int:
         row["qwen3moe_launches"] = qm_launches[row["name"]]
         row.update(rg_rows.get(row["name"], {}))
         row.update(qm_rows.get(row["name"], {}))
+    # phase 22: the sharded train step's launches (K1 forward, K5 backward)
+    kernels[0]["sharded_launches"] = sh_launches["flashd_fwd"]
+    kernels[4]["sharded_launches"] = sh_launches["flashd_bwd"]
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}; all phases "
               f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

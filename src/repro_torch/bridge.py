@@ -48,11 +48,21 @@ def params_from_numpy(tree, device="cpu"):
     return torch.from_numpy(np.array(arr, copy=True)).to(device)  # writable, owned
 
 
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A leaf on the host; a DTensor gathered whole (`full_tensor`, a
+    collective every rank joins)."""
+    t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    return t.cpu()
+
+
 def params_to_numpy(tree):
-    """Nested dict of tensors → nested dict of numpy arrays (bf16 → f32)."""
+    """Nested dict of tensors (or DTensors) → nested dict of numpy arrays
+    (bf16 → f32)."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    t = tree.detach().cpu()
+    t = _host(tree)
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
@@ -65,7 +75,7 @@ def train_state_from_numpy(state, device="cpu"):
     from repro_torch.train.train_step import TrainState
 
     if state.residual is not None:
-        raise NotImplementedError("gradient-compression residuals are not ported (A13)")
+        raise NotImplementedError("gradient-compression residuals are not ported (A13 c)")
     scalar = lambda x: torch.as_tensor(np.asarray(x)).to(device)
     opt = state.opt
     return TrainState(
@@ -81,7 +91,7 @@ def train_state_to_numpy(state):
     """The port's `TrainState` → the same NamedTuples with numpy leaves
     (bf16 → f32), whose fields the reference's `TrainState` / `OptState`
     take as they are."""
-    scalar = lambda t: t.detach().cpu().numpy()
+    scalar = lambda t: _host(t).numpy()
     opt = state.opt
     return type(state)(
         params=params_to_numpy(state.params),

@@ -33,8 +33,16 @@ Every impl but 'xla' runs through one `torch.autograd.Function`, the
 reference's `custom_vjp`: the forward saves (q, k, v, O, Λ) and the
 backward is the `attention_bwd` op — K5 on the kernel route, its plain
 version otherwise — which recomputes the score tiles from (q, k, Λ), so
-nothing [Sq, Skv]-sized is saved. The context-parallel routes
-(`maybe_ring_prefill`, `maybe_cp_decode`) are not ported yet (A13).
+nothing [Sq, Skv]-sized is saved.
+
+Under a sharding context (`distributed.sharding`), q, k and v are DTensors
+and `flash_attention` runs that same Function in one `local_map` island on
+each rank's local heads (K1 / K6 forward and K5 backward on the card):
+heads go over 'model' only when both Hq and Hkv divide it — contiguous
+shards then keep q head i beside kv head ⌊i/G⌋ — and otherwise the batch
+goes over every mesh axis that divides it (the reference's full-DP
+fallback). The context-parallel routes (`maybe_ring_prefill`,
+`maybe_cp_decode`) are not ported yet (A13 b).
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.blockwise import NEG_INF, MaskSpec, merge_partials
+from repro_torch.distributed import sharding as shd
 
 __all__ = [
     "flash_attention",
@@ -170,7 +179,40 @@ def flash_attention(
     uses_kernel(impl, q)  # validates the impl name
     if impl == "xla":
         return _xla_attention(q, k, v, mask, scale)
+    if shd.is_dtensor(q):
+        return _attention_island(q, k, v, mask, scale, impl, block_q, block_k, skip)
     return _FlashAttention.apply(q, k, v, mask, scale, impl, block_q, block_k, skip)
+
+
+def _island_spec(ctx, q_shape, k_shape) -> "shd.P":
+    """One spec for q, k and v: heads over 'model' when both head counts
+    divide it, else the batch over every axis that divides it. The sequence
+    stays whole (each rank's attention sees its rows' every key)."""
+    b = shd._fit(ctx, q_shape[0], ctx.batch_axes)
+    if shd._fit(ctx, q_shape[2], "model") and shd._fit(ctx, k_shape[2], "model"):
+        return shd.P(b, None, "model", None)
+    return shd.P(shd._fit(ctx, q_shape[0], ctx.batch_axes + ("model",)), None, None, None)
+
+
+def _attention_island(q, k, v, mask, scale, impl, block_q, block_k, skip):
+    """`_FlashAttention` on each rank's shard of DTensors q, k, v: the
+    kernels (or, on CPU tensors, their plain versions) see plain local
+    tensors, made contiguous so a strided shard is not refused by the
+    kernels' 16-byte copy checks."""
+    from torch.distributed.tensor.experimental import local_map
+
+    ctx = shd.active_ctx()
+    if ctx is None:
+        raise RuntimeError("DTensor attention inputs without an active sharding context")
+    mesh = q.device_mesh
+    pl = shd.placements(_island_spec(ctx, q.shape, k.shape), mesh)
+
+    def local(q_, k_, v_):
+        return _FlashAttention.apply(q_.contiguous(), k_.contiguous(), v_.contiguous(), mask,
+                                     scale, impl, block_q, block_k, skip)
+
+    return local_map(local, out_placements=(pl,), in_placements=(pl, pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 def decode_attention(

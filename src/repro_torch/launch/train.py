@@ -1,5 +1,5 @@
 """Training launcher: config → resilient loop → checkpoints — the port of
-`repro/launch/train.py` on one device.
+`repro/launch/train.py`.
 
 The loop runs under the `train_resilient` supervisor: verified checkpoints
 with newest-good fallback, the non-finite-grad skip and dynamic loss
@@ -13,26 +13,43 @@ with `--resume` replays to a bitwise-identical loss curve.
     # on the CPU, at the smoke widths (a check of the control flow)
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu --steps 3
 
-Runs on the card unless `--device cpu` is given. The reference's flags,
-without `--compression` (gradient compression: the multi-device slice, A13)
-and without a mesh: one device.
+    # sharded over 4 CPU processes (gloo): plan_mesh(4) → a (1, 4) mesh
+    PYTHONPATH=src torchrun --nproc_per_node 4 -m repro_torch.launch.train \
+        --smoke --device cpu --steps 3
+
+Runs on the card unless `--device cpu` is given. Under torchrun with
+WORLD_SIZE > 1 it takes the reference's mesh branch: `plan_mesh(world)` →
+`make_mesh` (NCCL on the card, gloo on the CPU) → `ShardingCtx`, the state
+distributed by `param_specs`, each batch by `batch_specs`; rank 0 prints
+and writes the checkpoints. At world size 1 it is the unsharded path, as in
+the reference. The reference's flags, without `--compression` (gradient
+compression is not ported yet, A13 c).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import tempfile
 import time
 
+import torch.distributed as dist
+
 from repro_torch import configs
 from repro_torch.data import DataConfig, SyntheticLM
-from repro_torch.devices import resolve_device
+from repro_torch.devices import make_mesh, resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import checkpoint as ckpt
-from repro_torch.runtime.resilience import FaultInjector, StragglerMonitor
+from repro_torch.runtime.resilience import FaultInjector, StragglerMonitor, plan_mesh
 from repro_torch.train import ResilienceConfig, train_resilient
-from repro_torch.train.train_step import TrainConfig
+from repro_torch.train.train_step import (
+    TrainConfig,
+    init_train_state,
+    make_train_step,
+    train_state_specs,
+)
 
 
 def main(argv=None):
@@ -83,7 +100,21 @@ def main(argv=None):
         accum_steps=args.accum,
     )
 
-    ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_train_ckpt_")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    ctx, own_group = None, False
+    if world > 1:
+        own_group = not dist.is_initialized()
+        plan = plan_mesh(world)
+        ctx = shd.ShardingCtx(make_mesh(plan.mesh_shape, plan.axis_names, device=dev))
+    lead = ctx is None or ctx.mesh.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+
+    ckpt_dir = args.ckpt_dir
+    if ckpt_dir is None:
+        ckpt_dir = [tempfile.mkdtemp(prefix="repro_torch_train_ckpt_") if lead else None]
+        if ctx is not None:  # one directory for every rank: rank 0's
+            dist.broadcast_object_list(ckpt_dir, src=0)
+        ckpt_dir = ckpt_dir[0]
     existing = ckpt.valid_steps(ckpt_dir)
     if existing and not args.resume:
         raise SystemExit(
@@ -91,7 +122,7 @@ def main(argv=None):
             f"pass --resume to continue or point --ckpt-dir elsewhere"
         )
     if args.resume and existing:
-        print(f"resuming from step {existing[-1]} in {ckpt_dir}")
+        say(f"resuming from step {existing[-1]} in {ckpt_dir}")
 
     data = SyntheticLM(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq_len,
@@ -102,8 +133,19 @@ def main(argv=None):
         injector = FaultInjector(args.fault_rate, args.fault_seed,
                                  sites=FaultInjector.TRAIN_SITES)
 
+    init_state_fn = step_fn = None
+    if ctx is not None:
+        def init_state_fn():
+            state = init_train_state(cfg, tc, device=dev, seed=args.seed)
+            with shd.activate(ctx):
+                return shd.distribute_tree(state, train_state_specs(state))
+
+        with shd.activate(ctx):
+            bspecs = shd.batch_specs(data.batch(0))
+        step_fn = shd.sharded(make_train_step(cfg, tc), (None, bspecs), ctx)
+
     monitor = StragglerMonitor(
-        on_straggler=lambda s, dt, mu: print(
+        on_straggler=lambda s, dt, mu: say(
             f"[straggler] step {s}: {dt*1e3:.0f}ms vs EWMA {mu*1e3:.0f}ms"
         )
     )
@@ -116,7 +158,7 @@ def main(argv=None):
         if step % args.log_every == 0 or step == args.steps - 1:
             moe = (f"moe aux {metrics['moe_aux_loss']:.4f} z {metrics['moe_z_loss']:.4f} "
                    f"dropped {metrics['moe_dropped']:.3f} " if cfg.n_experts else "")
-            print(
+            say(
                 f"step {step:5d} loss {metrics['loss']:.4f} "
                 f"gnorm {metrics['grad_norm']:.3f} "
                 f"lr {metrics['lr']:.2e} "
@@ -137,14 +179,17 @@ def main(argv=None):
     state, history, counters = train_resilient(
         ckpt_dir=ckpt_dir, model_cfg=cfg, train_cfg=tc, data=data,
         total_steps=args.steps, seed=args.seed, res=res, injector=injector,
-        on_step=on_step, device=dev,
+        on_step=on_step, device=dev, init_state_fn=init_state_fn, step_fn=step_fn,
     )
-    print(
-        f"done: {len(history)} committed steps in {time.time() - t0:.1f}s on {dev.type} "
+    mesh = "" if ctx is None else f" on a {dict(ctx.axis_sizes)} mesh"
+    say(
+        f"done: {len(history)} committed steps in {time.time() - t0:.1f}s on {dev.type}{mesh} "
         f"(skipped={counters['skipped']} rollbacks={counters['rollbacks']} "
         f"restarts={counters['restarts']} faults={counters['faults']} "
         f"stragglers={len(monitor.flagged)}) — checkpoints in {ckpt_dir}"
     )
+    if own_group:
+        dist.destroy_process_group()
     return 0
 
 

@@ -9,7 +9,9 @@ full mask, no RoPE, K/V from the memory), SwiGLU. On the card the three
 attentions of the forward are K1 (or K6 under `attn_impl` fa2) with the
 full or causal mask, Sq ≠ Skv for cross attention, and their gradients K5;
 both attentions of a decode step are K2 (a contiguous cache with a
-per-row length), as in `transformer.decode_step_lm`.
+per-row length), as in `transformer.decode_step_lm`. The training forward
+carries the reference's `residual` / `logits` shard points (identities with
+no sharding context).
 
 Parameters are the reference's tree: `embed`, `frame_proj`, `enc_blocks`
 and `dec_blocks` stacked on a leading layer axis (each decoder block adds
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.core.attention import decode_attention, uses_kernel
 from repro_torch.devices import resolve_device
+from repro_torch.distributed.sharding import replicate_like, shard
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dense_init, embed_lookup, logits_from_hidden, rms_norm
 from repro_torch.models.transformer import (
@@ -91,15 +94,15 @@ def _n_layers(blocks: dict) -> int:
 
 def _enc_block(bp: dict, h, cfg: ModelConfig, positions):
     x = rms_norm(h, bp["norm1"], cfg.norm_eps)
-    h = h + _apply_attn(bp["mixer"], x, cfg, "attn_bidir", positions)
+    h = shard(h + _apply_attn(bp["mixer"], x, cfg, "attn_bidir", positions), "residual")
     return _apply_ffn(bp, h, cfg, "swiglu")[0]
 
 
 def _dec_block(bp: dict, h, memory, cfg: ModelConfig, positions):
     x = rms_norm(h, bp["norm1"], cfg.norm_eps)
-    h = h + _apply_attn(bp["mixer"], x, cfg, "attn", positions)
+    h = shard(h + _apply_attn(bp["mixer"], x, cfg, "attn", positions), "residual")
     x = rms_norm(h, bp["norm_cross"], cfg.norm_eps)
-    h = h + _apply_attn(bp["cross"], x, cfg, "cross", positions, kv_x=memory)
+    h = shard(h + _apply_attn(bp["cross"], x, cfg, "cross", positions, kv_x=memory), "residual")
     return _apply_ffn(bp, h, cfg, "swiglu")[0]
 
 
@@ -108,7 +111,7 @@ def encode(params: dict, frame_embeds: torch.Tensor, cfg: ModelConfig) -> torch.
     in the compute dtype. Under autograd each block is rematerialized as
     `cfg.remat` says."""
     cdt = cfg.compute_dtype
-    h = torch.matmul(frame_embeds.to(cdt), params["frame_proj"].to(cdt))
+    h = shard(torch.matmul(frame_embeds.to(cdt), params["frame_proj"].to(cdt)), "residual")
     positions = torch.arange(h.shape[1], device=h.device)
     block = _remat(_enc_block, cfg)
     for i in range(_n_layers(params["enc_blocks"])):
@@ -121,7 +124,7 @@ def apply_encdec(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool
     f32 — [B, 1, Vpad] with last_only — and the aux dict: the MoE keys at
     zero, as the reference's)."""
     memory = encode(params, batch["frame_embeds"], cfg)
-    h = embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype)
+    h = shard(embed_lookup(params["embed"], batch["tokens"], cfg.compute_dtype), "residual")
     positions = torch.arange(h.shape[1], device=h.device)
     block = _remat(_dec_block, cfg)
     for i in range(_n_layers(params["dec_blocks"])):
@@ -129,8 +132,10 @@ def apply_encdec(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     if last_only:
         h = h[:, -1:]
-    aux = {k: torch.zeros((), dtype=torch.float32, device=h.device) for k in _AUX_KEYS}
-    return logits_from_hidden(h, params["lm_head"], cfg.vocab_size), aux
+    h = shard(h, "hidden")
+    aux = {k: replicate_like(torch.zeros((), dtype=torch.float32, device=h.device), h)
+           for k in _AUX_KEYS}
+    return shard(logits_from_hidden(h, params["lm_head"], cfg.vocab_size), "logits"), aux
 
 
 def encdec_loss(params: dict, batch: Dict, cfg: ModelConfig):

@@ -9,6 +9,10 @@
     matmul would round its output to bf16) and masks the padded vocab;
   * `conv1d_causal` sums its taps in order in the input dtype (full
     sequence) and contracts the window in f32 (decode).
+
+Under a sharding context the activations are DTensors: the rope tables and
+the padded-vocab mask are built as plain tensors and enter as replicated
+DTensors (`sharding.replicate_like`), with the same values.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import math
 from typing import Optional
 
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor, replicate_like, vocab_island
 
 __all__ = ["dense_init", "rms_norm", "apply_rope", "embed_lookup", "logits_from_hidden",
            "conv1d_causal"]
@@ -57,6 +63,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
         cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     else:  # positions [B, S] → [B, S, 1, half]
         cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    cos, sin = replicate_like(cos, x), replicate_like(sin, x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -66,8 +73,21 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor, dtype: torch.dtype) -> 
     """Token embedding (LLaMA convention: no sqrt(d) scaling). Through
     `F.embedding`, whose backward sums a row's gradients in a fixed order;
     the backward of `table[ids]` accumulates in an order that varies from
-    run to run on the CPU, which would break the bitwise-resume contract."""
+    run to run on the CPU, which would break the bitwise-resume contract.
+    A vocab-sharded DTensor table looks up each rank's rows
+    (`sharding.vocab_island`)."""
+    if is_dtensor(table) and any(p.is_shard(0) for p in table.placements):
+        return vocab_island(_embed_rows, table, 0, ids).to(dtype)
     return torch.nn.functional.embedding(ids, table).to(dtype)
+
+
+def _embed_rows(table, ids, first: int, rows: int):
+    """The embedding of the ids in [first, first + rows) from the table's
+    rows; zero elsewhere."""
+    j = ids - first
+    ok = (j >= 0) & (j < rows)
+    out = torch.nn.functional.embedding(torch.where(ok, j, 0), table)
+    return out * ok[..., None].to(out.dtype)
 
 
 def logits_from_hidden(h: torch.Tensor, head: torch.Tensor, true_vocab: int) -> torch.Tensor:
@@ -75,7 +95,11 @@ def logits_from_hidden(h: torch.Tensor, head: torch.Tensor, true_vocab: int) -> 
     logits = torch.matmul(h.float(), head.to(h.dtype).float())
     v_pad = head.shape[-1]
     if v_pad > true_vocab:
-        logits[..., true_vocab:] = -1e30
+        if is_dtensor(logits):  # a vocab-sharded DTensor: no slice assignment
+            pad = torch.arange(v_pad, device=logits.device) >= true_vocab
+            logits = torch.where(replicate_like(pad, logits), -1e30, logits)
+        else:
+            logits[..., true_vocab:] = -1e30
     return logits
 
 

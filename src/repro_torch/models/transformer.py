@@ -56,6 +56,16 @@ from repro_torch.core.attention import (
     varlen_attention,
 )
 from repro_torch.devices import resolve_device
+from repro_torch.distributed.sharding import (
+    P,
+    active_ctx,
+    is_dtensor,
+    placements,
+    replicate_like,
+    shard,
+    spec_for,
+    vocab_island,
+)
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
@@ -221,7 +231,8 @@ def _qkv(p, x, cfg: ModelConfig, kind: str, positions, kv_x=None):
     cdt = cfg.compute_dtype
     hd = cfg.head_dim_
     b, s, _ = x.shape
-    src = x if kv_x is None else kv_x
+    x = shard(x, "hidden")  # the sequence whole before the column-parallel products
+    src = x if kv_x is None else shard(kv_x, "hidden")
     q = torch.matmul(x, p["wq"].to(cdt))
     k = torch.matmul(src, p["wk"].to(cdt))
     v = torch.matmul(src, p["wv"].to(cdt))
@@ -229,9 +240,9 @@ def _qkv(p, x, cfg: ModelConfig, kind: str, positions, kv_x=None):
         q = q + p["bq"].to(cdt)
         k = k + p["bk"].to(cdt)
         v = v + p["bv"].to(cdt)
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
-    v = v.reshape(b, src.shape[1], cfg.n_kv_heads, hd)
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    v = _split_heads(v, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -240,6 +251,17 @@ def _qkv(p, x, cfg: ModelConfig, kind: str, positions, kv_x=None):
         k_pos = positions if kv_x is None else torch.arange(src.shape[1], device=src.device)
         k = apply_rope(k, k_pos, cfg.rope_theta)
     return q, k, v
+
+
+def _split_heads(x, h: int, hd: int):
+    """[B, S, H·hd] → [B, S, H, hd]. A DTensor takes the heads spec first:
+    an H·hd dim sharded over more ranks than H divides by cannot be
+    unflattened."""
+    b, s = x.shape[:2]
+    if is_dtensor(x):
+        spec = spec_for("heads", (b, s, h, hd))
+        x = x.redistribute(x.device_mesh, placements(P(*spec[:3]), x.device_mesh))
+    return x.reshape(b, s, h, hd)
 
 
 def _attn_mask(cfg: ModelConfig, kind: str) -> MaskSpec:
@@ -254,19 +276,28 @@ def _attn_mask(cfg: ModelConfig, kind: str) -> MaskSpec:
 
 def _apply_attn(p, x, cfg: ModelConfig, kind: str, positions, kv_x=None):
     q, k, v = _qkv(p, x, cfg, kind, positions, kv_x)
+    q, k, v = shard(q, "heads"), shard(k, "heads"), shard(v, "heads")
     o = flash_attention(
         q, k, v, mask=_attn_mask(cfg, kind), impl=cfg.attn_impl,
         block_q=cfg.attn_block_q, block_k=cfg.attn_block_k, skip=cfg.attn_skip,
     )
+    o = shard(o, "heads")
     b, s = x.shape[:2]
-    return torch.matmul(o.reshape(b, s, cfg.n_heads * cfg.head_dim_), p["wo"].to(cfg.compute_dtype))
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim_)
+    if is_dtensor(o):
+        # pinned to its placements: the backward brings the gradient back to
+        # them before un-merging the heads (a gradient sharded over more
+        # ranks than H divides by cannot be unflattened)
+        o = o.redistribute(o.device_mesh, o.placements)
+    return torch.matmul(o, p["wo"].to(cfg.compute_dtype))
 
 
 def _apply_swiglu(p, x, cfg: ModelConfig):
     cdt = cfg.compute_dtype
+    x = shard(x, "hidden")
     g = torch.matmul(x, p["wg"].to(cdt))
     u = torch.matmul(x, p["wu"].to(cdt))
-    return torch.matmul(torch.nn.functional.silu(g) * u, p["wd"].to(cdt))
+    return torch.matmul(shard(torch.nn.functional.silu(g) * u, "ff"), p["wd"].to(cdt))
 
 
 def _apply_ffn(bp: dict, h, cfg: ModelConfig, ffn: str):
@@ -276,23 +307,32 @@ def _apply_ffn(bp: dict, h, cfg: ModelConfig, ffn: str):
         return h, None
     x = rms_norm(h, bp["norm2"], cfg.norm_eps)
     if ffn == "swiglu":
-        return h + _apply_swiglu(bp["ffn"], x, cfg), None
+        return shard(h + _shard_out(_apply_swiglu(bp["ffn"], x, cfg)), "residual"), None
     y, aux = moe_mod.apply_moe(bp["ffn"], x, cfg)
-    return h + y, torch.stack([aux[k] for k in _AUX_KEYS])
+    return shard(h + _shard_out(y), "residual"), torch.stack([aux[k] for k in _AUX_KEYS])
+
+
+def _shard_out(y):
+    """Reduce-scatter placement: a row-parallel output constrained to the
+    seq-sharded residual spec (identity with no sharding context)."""
+    ctx = active_ctx()
+    if ctx is not None and getattr(ctx, "rs_outputs", False):
+        return shard(y, "residual")
+    return y
 
 
 def _apply_block(bp: dict, h, cfg: ModelConfig, spec, positions):
     """One (mixer, ffn) block with pre-norms and residuals → (h, aux [3] or
     None), as `_apply_ffn`."""
     mixer, ffn = spec
-    x = rms_norm(h, bp["norm1"], cfg.norm_eps)
+    x = shard(rms_norm(h, bp["norm1"], cfg.norm_eps), "hidden")
     if mixer == "rglru":
         y = rg.apply_rglru(bp["mixer"], x, cfg)
     elif mixer == "ssm":
         y = m2.apply_mamba2(bp["mixer"], x, cfg)
     else:
         y = _apply_attn(bp["mixer"], x, cfg, mixer, positions)
-    return _apply_ffn(bp, h + y, cfg, ffn)
+    return _apply_ffn(bp, shard(h + _shard_out(y), "residual"), cfg, ffn)
 
 
 def _head(params, cfg: ModelConfig):
@@ -349,10 +389,10 @@ def forward_hidden(params: dict, batch: Dict, cfg: ModelConfig):
     S counts a vision batch's patch rows; positions run over all of it.
     Under autograd each block is rematerialized as `cfg.remat` says."""
     check_ported(cfg)
-    h = _embed_inputs(params, batch, cfg)
+    h = shard(_embed_inputs(params, batch, cfg), "residual")
     positions = torch.arange(h.shape[1], device=h.device)
     block = _remat(_apply_block, cfg)
-    aux = torch.zeros((len(_AUX_KEYS),), dtype=torch.float32, device=h.device)
+    aux = replicate_like(torch.zeros((len(_AUX_KEYS),), dtype=torch.float32, device=h.device), h)
     for key, pattern in _groups(cfg):
         acc = torch.zeros_like(aux)
         for i in range(params[key]["pos0"]["norm1"].shape[0]):
@@ -373,7 +413,8 @@ def apply_lm(params: dict, batch: Dict, cfg: ModelConfig, *, last_only: bool = F
     h, aux = forward_hidden(params, batch, cfg)
     if last_only:
         h = h[:, -1:]
-    return logits_from_hidden(h, _head(params, cfg), cfg.vocab_size), aux
+    h = shard(h, "hidden")
+    return shard(logits_from_hidden(h, _head(params, cfg), cfg.vocab_size), "logits"), aux
 
 
 def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
@@ -390,13 +431,34 @@ def lm_loss(params: dict, batch: Dict, cfg: ModelConfig):
     return loss, {"ce": ce, **aux}
 
 
+def _gold_rows(logits, labels, first: int, rows: int):
+    """The logit at each label in [first, first + rows) of the vocab shard;
+    zero elsewhere."""
+    j = labels.long() - first
+    ok = (j >= 0) & (j < rows)
+    gold = torch.gather(logits, -1, torch.where(ok, j, 0)[..., None])[..., 0]
+    return torch.where(ok, gold, 0.0)
+
+
 def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean cross entropy of logits [B, S, V] at labels [B, S] over the
-    labels ≥ 0 (−1 masks a position)."""
+    labels ≥ 0 (−1 masks a position).
+
+    Vocab-sharded DTensor logits take the vocab-parallel log-sum-exp (a
+    max and a sum of exponentials reduced across the shards, never the
+    full logits on one rank) and the gold logit from each rank's vocab
+    shard (`sharding.vocab_island`)."""
     mask = (labels >= 0).float()
     safe = torch.clamp(labels, min=0)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    if is_dtensor(logits):
+        m = logits.detach().amax(dim=-1, keepdim=True)
+        lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+    if is_dtensor(logits) and any(p.is_shard(2) for p in logits.placements):
+        gold = vocab_island(_gold_rows, logits, 2, safe)
+    else:
+        gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
     return torch.sum((lse - gold) * mask) / torch.clamp(mask.sum(), min=1.0)
 
 

@@ -5,6 +5,13 @@ Optimizer state is a tree shaped like the parameters (m, v) plus a step
 counter. Updates are functional, as the reference's: `apply_updates`
 returns new trees and leaves its inputs alone, so the train step can
 select the old state back when a step is skipped.
+
+Sharded state (DTensor leaves, `distributed.sharding`): m and v take their
+parameter's placements (FSDP shards the optimizer state for free, as in
+the reference); `global_norm` is one norm over the whole tree, each
+replicated leaf counted once, so the clip scale is the same on every rank;
+the update is elementwise and runs on each leaf's local shard with the
+same expressions, so its values are those of the unsharded update.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, replicate_like
 from repro_torch.models.config import _torch_dtype
 from repro_torch.tree import tree_flatten_with_names, tree_leaves, tree_map, tree_unflatten_like
 
@@ -51,8 +59,20 @@ def init_opt(params, state_dtype=None) -> OptState:
 
 
 def global_norm(tree) -> torch.Tensor:
+    """√(Σ x²) over every leaf. DTensor leaves give a replicated DTensor
+    scalar: each leaf's sum is reduced over its shards, and a replicated
+    leaf counts once."""
     leaves = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if is_dtensor(leaves[0]):
+        leaves = [x.full_tensor() for x in leaves]
+        return replicate_like(torch.sqrt(torch.sum(torch.stack(leaves))), tree_leaves(tree)[0])
     return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def _local(x):
+    """A DTensor's shard on this rank (a replicated scalar: its value); a
+    plain tensor or number as it is."""
+    return x.to_local() if is_dtensor(x) else x
 
 
 def _decay_mask(params, cfg: AdamWConfig):
@@ -93,7 +113,16 @@ def apply_updates(
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
 
+    scale, b1c, b2c, lr_ = (_local(x) for x in (scale, b1c, b2c, lr))
+
     def update(p, g, m, v, d):
+        if is_dtensor(p):  # the same update on this rank's shard of each leaf
+            from torch.distributed.tensor import DTensor
+
+            g = g.redistribute(p.device_mesh, p.placements)
+            out = update(*(x.to_local() for x in (p, g, m, v)), d)
+            return [DTensor.from_local(x, p.device_mesh, p.placements, run_check=False,
+                                       shape=p.shape, stride=p.stride()) for x in out]
         out = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (p, m, v)]
         flat = [x.reshape(-1) for x in (p, g, m, v)]
         new_p, new_m, new_v = (x.view(-1) for x in out)
@@ -108,7 +137,7 @@ def apply_updates(
             mhat = new_m[at].float() / b1c
             vhat = new_v[at].float() / b2c
             step_ = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * d * p_.float()
-            torch.sub(p_.float(), lr * step_, out=new_p[at])
+            torch.sub(p_.float(), lr_ * step_, out=new_p[at])
         return out
 
     leaves = [update(*x) for x in zip(*(tree_leaves(t) for t in

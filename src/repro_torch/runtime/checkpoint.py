@@ -25,7 +25,15 @@ malformed directories; a CRC32 per shard in the manifest, verified by
 back to the newest step that verifies otherwise; `CheckpointManager`
 snapshots to host memory synchronously, writes on a thread, surfaces a
 failed save on the next `wait()` and only garbage-collects after a good
-save. There is no resharding (`shardings=`): the multi-device slice (A13).
+save.
+
+Sharded trees (DTensor leaves, `distributed.sharding`): `save` gathers each
+leaf with `full_tensor()` on every rank (a collective), rank 0 writes the
+one host shard in the same format, and every rank waits at a barrier until
+it is published. `restore` places each leaf as its template leaf is placed
+(a sharded template restores sharded), or with `shardings=` (a tree of
+`sharding.P` specs) on the active mesh — the reference's elastic re-mesh: a
+checkpoint saved on one mesh restores onto another.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.tree import tree_flatten_with_names, tree_unflatten_like
 
 __all__ = [
@@ -63,6 +72,8 @@ class CheckpointCorrupt(RuntimeError):
 
 def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     """A host copy of one leaf and the dtype name the manifest records."""
+    if is_dtensor(leaf):
+        leaf = leaf.detach().full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)  # a snapshot, never a view of live state
         if t.dtype == torch.bfloat16:  # the reference's bytes: |V2 on load
@@ -79,13 +90,37 @@ def _flatten(tree) -> Dict[str, Tuple[np.ndarray, str]]:
 
 def _from_numpy(arr: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     """A fresh tensor in torch's own allocation (the CPU's BLAS may take
-    another code path — and round differently — on numpy's alignment)."""
+    another code path — and round differently — on numpy's alignment),
+    placed as `like` is when it is a DTensor."""
     arr = np.asarray(arr, order="C")
     if arr.dtype == _BF16_BYTES:
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+
+        t = t.to(device=like.device_mesh.device_type, dtype=like.dtype, copy=True)
+        return distribute_tensor(t, like.device_mesh, like.placements)
     return t.to(device=like.device, dtype=like.dtype, copy=True)
+
+
+def _sharded(tree) -> bool:
+    """Does the tree hold DTensor leaves (a save every rank joins)?"""
+    return tree is not None and any(is_dtensor(x) for _, x in tree_flatten_with_names(tree))
+
+
+def _writes() -> bool:
+    """Rank 0 writes a sharded checkpoint; the others only gather."""
+    import torch.distributed as dist
+
+    return dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    dist.barrier()
 
 
 def _unflatten(tree_like, flat: Dict[str, np.ndarray]):
@@ -144,9 +179,18 @@ def _write(ckpt_dir: str, step: int, flat, extra, host_index: int) -> str:
 def save(ckpt_dir: str, step: int, tree, *, extra: Optional[Dict[str, Any]] = None,
          host_index: int = 0) -> str:
     """Write a checkpoint. `tree=None` writes a metadata-only checkpoint
-    (manifest + `extra`, no array shards)."""
-    return _write(ckpt_dir, step, _flatten(tree) if tree is not None else None, extra,
-                  host_index)
+    (manifest + `extra`, no array shards). A sharded tree is gathered on
+    every rank, written by rank 0, and published before any rank returns."""
+    flat = _flatten(tree) if tree is not None else None
+    if not _sharded(tree):
+        return _write(ckpt_dir, step, flat, extra, host_index)
+    path = os.path.join(ckpt_dir, f"step_{step:08d}")
+    try:
+        if _writes():
+            path = _write(ckpt_dir, step, flat, extra, host_index)
+    finally:
+        _barrier()
+    return path
 
 
 def _step_dirs(ckpt_dir: str) -> List[int]:
@@ -194,9 +238,12 @@ def valid_steps(ckpt_dir: str) -> List[int]:
     return [s for s in _step_dirs(ckpt_dir) if verify_step(ckpt_dir, s)]
 
 
-def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
+def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None, shardings=None,
             verify: bool = True) -> Tuple[Any, Dict[str, Any]]:
-    """Load into the structure, dtypes and devices of `tree_like`.
+    """Load into the structure, dtypes and devices of `tree_like` (a
+    DTensor leaf: its mesh and placements). `shardings` (a tree of
+    `sharding.P` specs shaped like `tree_like`) re-places every leaf on the
+    active sharding context's mesh instead: the elastic re-mesh.
     `tree_like=None` loads only the manifest `extra`.
 
     With `verify=True` (default) shard checksums are validated first: an
@@ -228,7 +275,12 @@ def restore(ckpt_dir: str, tree_like, *, step: Optional[int] = None,
         if fn.startswith("shard_") and fn.endswith(".npz"):
             with np.load(os.path.join(d, fn)) as z:
                 flat.update({k: z[k] for k in z.files})
-    return _unflatten(tree_like, flat), manifest["extra"]
+    tree = _unflatten(tree_like, flat)
+    if shardings is not None:
+        from repro_torch.distributed.sharding import distribute_tree
+
+        tree = distribute_tree(tree, shardings)
+    return tree, manifest["extra"]
 
 
 class CheckpointManager:
@@ -253,8 +305,12 @@ class CheckpointManager:
             raise err
 
     def save_async(self, step: int, tree, *, extra=None):
+        """A sharded tree is gathered on every rank and written by rank 0
+        alone (its `wait()` is where the save is known published)."""
         self.wait()  # one in-flight save at a time
         flat = _flatten(tree)  # the host copy: training may go on at once
+        if _sharded(tree) and not _writes():
+            return
 
         def work():
             try:

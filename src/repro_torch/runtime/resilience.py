@@ -28,8 +28,9 @@ checkpoints through `repro_torch.runtime.checkpoint`).
 * `StragglerMonitor` — per-step wall-time EWMA + robust z-score; flags slow
   steps and invokes a callback.
 
-The elastic re-mesh plan (`ElasticPlan`, `plan_mesh`) comes with the
-multi-device slice (A13).
+* `ElasticPlan` / `plan_mesh` — the mesh shape for a device count (the
+  launcher's mesh; a checkpoint restores onto any plan through
+  `checkpoint.restore(shardings=)`).
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ __all__ = [
     "EngineCrash",
     "DivergenceRollback",
     "StragglerMonitor",
+    "ElasticPlan",
+    "plan_mesh",
 ]
 
 
@@ -346,3 +349,27 @@ class StragglerMonitor:
         # EWMA updated with clipped sample so one straggler doesn't poison it
         clipped = min(dt, self.ewma * 3)
         self.ewma = (1 - self.alpha) * self.ewma + self.alpha * clipped
+
+
+# ---------------------------------------------------------------------------
+# elastic scaling
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    mesh_shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+
+def plan_mesh(n_devices: int, *, prefer_model: int = 16, pod_size: int = 256) -> ElasticPlan:
+    """Largest power-of-two model axis ≤ prefer_model that divides n_devices;
+    remaining factor → data; >1 pod_size multiples get an explicit pod axis."""
+    model = prefer_model
+    while model > 1 and n_devices % model:
+        model //= 2
+    rest = n_devices // model
+    if n_devices > pod_size and rest % (n_devices // pod_size) == 0:
+        pods = n_devices // pod_size
+        data = rest // pods
+        return ElasticPlan((pods, data, model), ("pod", "data", "model"))
+    return ElasticPlan((rest, model), ("data", "model"))

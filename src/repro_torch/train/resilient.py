@@ -24,7 +24,10 @@ generic `repro_torch.runtime.resilience.run_resilient` supervisor:
   skipped updates.
 
 The step carries the numerics guard (non-finite skip + dynamic loss
-scaling), see `repro_torch.train.train_step`. It never syncs the host; the
+scaling), see `repro_torch.train.train_step`. `init_state_fn` / `step_fn`
+replace the default state and step, as in the reference: the launcher's
+mesh passes a sharded state and a step that distributes each batch
+(`distributed.sharding.sharded`); checkpoints gather and restore it. It never syncs the host; the
 loop reads all of a step's metrics in one transfer, where the reference's
 `float(metrics["loss"])` syncs.
 """
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.devices import resolve_device
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.runtime.resilience import (
     DivergenceRollback,
     FaultInjector,
@@ -81,6 +85,8 @@ def train_resilient(
     chaos_hook: Optional[Callable[[int, object], object]] = None,
     on_step: Optional[Callable[[int, Dict[str, float], Dict[str, int]], None]] = None,
     device=None,
+    init_state_fn: Optional[Callable[[], object]] = None,
+    step_fn: Optional[Callable] = None,
 ) -> Tuple[object, List[Dict], Dict[str, int]]:
     """Train `total_steps` under the resilience policy; returns
     (final_state, history, counters).
@@ -88,11 +94,16 @@ def train_resilient(
     `data.batch(step)` must be a pure function of step (the bitwise-resume
     contract). `chaos_hook(step, state) -> state | None` is a test hook
     that can silently corrupt state before a step — the spike detector's
-    adversary. The state starts as `init_train_state` seeded with `seed`;
-    it and the batches live on `device` (default the card).
+    adversary. The state starts as `init_state_fn()` (default:
+    `init_train_state` seeded with `seed`) and steps through `step_fn`
+    (default: `make_train_step`); it and the batches live on `device`
+    (default the card).
     """
     dev = resolve_device(device)
-    step_fn = make_train_step(model_cfg, train_cfg)
+    if step_fn is None:
+        step_fn = make_train_step(model_cfg, train_cfg)
+    if init_state_fn is None:
+        init_state_fn = lambda: init_train_state(model_cfg, train_cfg, device=dev, seed=seed)
 
     counters = {"restarts": 0, "rollbacks": 0, "faults": 0, "skipped": 0}
     losses: Dict[int, float] = {}  # committed loss per data step (replay-safe)
@@ -150,7 +161,7 @@ def train_resilient(
 
     state, history = run_resilient(
         ckpt_dir=ckpt_dir,
-        init_state_fn=lambda: init_train_state(model_cfg, train_cfg, device=dev, seed=seed),
+        init_state_fn=init_state_fn,
         step_fn=supervised_step,
         total_steps=total_steps,
         ckpt_every=res.ckpt_every,
@@ -163,5 +174,6 @@ def train_resilient(
     if injector is not None:
         counters["faults"] = injector.total_fired
     if hasattr(state, "skipped"):
-        counters["skipped"] = int(state.skipped)
+        skipped = state.skipped
+        counters["skipped"] = int(skipped.full_tensor() if is_dtensor(skipped) else skipped)
     return state, history, counters

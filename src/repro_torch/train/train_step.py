@@ -19,8 +19,16 @@ consecutive finite steps the scale doubles. The step never syncs the host:
 its metrics stay tensors, and the caller reads them once (the reference's
 `float(metrics["loss"])`).
 
-Gradient compression (`compression != "none"`) waits for the multi-device
-slice (A13) and raises here.
+Sharded (under `distributed.sharding.activate(ctx)`, with the state and
+batch distributed by `param_specs` / `batch_specs`, e.g. through
+`sharding.sharded`): every tensor is a DTensor; each gradient is brought
+to its parameter's placements (a replicated leaf's partial sums reduced)
+before the guard, AdamW updates each rank's shards, the guard's check and
+selection run on DTensors with no host sync, and the metrics come back as
+plain tensors holding the replicated values.
+
+Gradient compression (`compression != "none"`) waits for the pipeline and
+compression slice (A13 c) and raises here.
 """
 
 from __future__ import annotations
@@ -30,17 +38,19 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import ModelConfig, get_model
 from repro_torch.optim import AdamWConfig, OptState, apply_updates, init_opt, warmup_cosine
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
-__all__ = ["TrainConfig", "TrainState", "init_train_state", "make_train_step"]
+__all__ = ["TrainConfig", "TrainState", "init_train_state", "make_train_step",
+           "train_state_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     optimizer: AdamWConfig = AdamWConfig()
-    compression: str = "none"  # int8 / topk: multi-device slice (A13)
+    compression: str = "none"  # int8 / topk: not ported yet (A13 c)
     warmup_steps: int = 100
     total_steps: int = 10000
     accum_steps: int = 1  # microbatch gradient accumulation
@@ -60,7 +70,7 @@ class TrainConfig:
     def __post_init__(self):
         if self.compression != "none":
             raise NotImplementedError(f"gradient compression {self.compression!r} is not "
-                                      "ported yet (multi-device slice, A13)")
+                                      "ported yet (multi-device slice, A13 c)")
 
 
 class TrainState(NamedTuple):
@@ -94,10 +104,52 @@ def init_train_state(model_cfg: ModelConfig, train_cfg: TrainConfig, *, device=N
     )
 
 
+def train_state_specs(state: TrainState) -> TrainState:
+    """The spec tree of a train state under the active sharding context:
+    params, m and v by `param_specs`, the scalars replicated (the
+    reference launcher's `_sspec`)."""
+    ps = shd.param_specs(state.params)
+    scalar = shd.P()
+    return TrainState(ps, OptState(ps, ps, scalar), None, scalar, scalar, scalar, scalar)
+
+
 def _cast_params(params, cdt: torch.dtype):
-    """≥2-D f32 masters in the compute dtype; 1-D leaves (norm scales) stay f32."""
-    return tree_map(lambda p: p.to(cdt) if p.ndim >= 2 and p.dtype == torch.float32 else p,
-                    params)
+    """≥2-D f32 masters in the compute dtype; 1-D leaves (norm scales) stay f32.
+    Under a sharding context each leaf's spec is re-asserted on the cast
+    copy, as the reference's `_cast_params_sharded` does."""
+    out = tree_map(lambda p: p.to(cdt) if p.ndim >= 2 and p.dtype == torch.float32 else p,
+                   params)
+    if shd.active_ctx() is None:
+        return out
+    return shd.distribute_tree(out, shd.param_specs(out))
+
+
+def _to_placements(g, p):
+    """A gradient in its parameter's placements (identity off the mesh)."""
+    if shd.is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _all_finite(loss, grads) -> torch.Tensor:
+    """One bool: the loss and every gradient entry finite. On DTensors each
+    rank counts the non-finite entries of its shards and one all-reduce
+    sums the counts (a replicated bool DTensor; no host sync)."""
+    if not shd.is_dtensor(loss):
+        return torch.stack([torch.isfinite(loss)] + [torch.isfinite(g).all() for g in grads]).all()
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    bad = (~torch.isfinite(loss.to_local())).sum()
+    for g in grads:
+        bad = bad + (~torch.isfinite(g.to_local())).sum()
+    mesh = loss.device_mesh
+    total = DTensor.from_local(bad, mesh, [Partial()] * mesh.ndim, run_check=False)
+    return total.redistribute(mesh, [Replicate()] * mesh.ndim) == 0
+
+
+def _host_value(x):
+    """A metric as a plain tensor: a DTensor's replicated value."""
+    return x.full_tensor() if shd.is_dtensor(x) else x
 
 
 def _select_tree(pred, new, old):
@@ -125,7 +177,8 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
             loss = loss * scale
             leaves = tree_leaves(wrt)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(p) if g is None else _to_placements(g, p)
+                 for p, g in zip(leaves, grads)]
         metrics = {k: torch.as_tensor(v, dtype=torch.float32, device=loss.device).detach()
                    for k, v in metrics.items()}
         return loss.detach(), metrics, tree_unflatten_like(params, grads)
@@ -154,8 +207,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
         inv = 1.0 / scale
         grads = tree_map(lambda g: g * inv.to(g.dtype), grads)
         loss = loss * inv
-        finite = torch.stack([torch.isfinite(loss)]
-                             + [torch.isfinite(g).all() for g in tree_leaves(grads)]).all()
+        finite = _all_finite(loss, tree_leaves(grads))
 
         lr = warmup_cosine(state.step, peak_lr=train_cfg.optimizer.lr,
                            warmup_steps=train_cfg.warmup_steps,
@@ -184,6 +236,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig):
                                skipped)
         guard_metrics = {"loss_scale": scale, "skipped": skipped.float(),
                          "finite": finite.float()}
-        return new_state, {"loss": loss, **metrics, **opt_metrics, **guard_metrics}
+        metrics = {"loss": loss, **metrics, **opt_metrics, **guard_metrics}
+        return new_state, {k: _host_value(v) for k, v in metrics.items()}
 
     return train_step

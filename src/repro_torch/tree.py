@@ -1,6 +1,7 @@
 """Nested-container helpers over the port's state trees (what `jax.tree`
 did for the reference): dicts, NamedTuples, tuples and lists of tensors,
-with None as an empty subtree.
+with None as an empty subtree. A tuple whose type sets `is_tree_leaf`
+(a sharding spec, `distributed.sharding.P`) is a leaf.
 
 Dicts are walked in sorted key order, as `jax.tree_util` walks them, so a
 reduction over the leaves (`optim.global_norm`) sums in the reference's
@@ -31,13 +32,15 @@ def _children(tree) -> List[Tuple[str, object]]:
 
 
 def _is_container(tree) -> bool:
-    return isinstance(tree, (dict, tuple, list))
+    return isinstance(tree, (dict, tuple, list)) and not getattr(tree, "is_tree_leaf", False)
 
 
 def tree_map(fn: Callable, tree, *rest):
     """`fn` over the leaves of `tree` (and the matching leaves of `rest`)."""
     if tree is None:
         return None
+    if not _is_container(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if _is_namedtuple(tree):

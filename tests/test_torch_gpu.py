@@ -1063,6 +1063,44 @@ def test_train_step_kernel_path_matches_plain(cuda, impl):
     assert dev <= 1e-3 * upd, (dev, upd)
 
 
+def test_sharded_train_step_on_a_one_rank_nccl_mesh(cuda, tmp_path):
+    """qwen3-0.6b SMOKE (f32) under `distributed.sharding` on a 1-rank NCCL
+    process group and a (1, 1) ('data', 'model') mesh: the sharded step
+    equals the unsharded one (loss and grad norm within 1e-5 relative,
+    parameters within 1e-6), and K1 and K5 launch inside it, through the
+    attention island (remat 'full': the forward twice a layer)."""
+    import torch.distributed as dist
+
+    from repro_torch.devices import make_mesh
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.train.train_step import train_state_specs
+
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), dtype="float32",
+                              attn_impl="flashd_gpu")
+    tc = TrainConfig(warmup_steps=0)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2))
+    batch = {k: torch.as_tensor(x, device=cuda) for k, x in data.batch(0).items()}
+    s_u, m_u = make_train_step(cfg, tc)(init_train_state(cfg, tc, device=cuda, seed=0), batch)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1)
+    try:
+        ctx = shd.ShardingCtx(make_mesh((1, 1), ("data", "model"), device="cuda"))
+        with shd.activate(ctx):
+            state = init_train_state(cfg, tc, device=cuda, seed=0)
+            state = shd.distribute_tree(state, train_state_specs(state))
+            step = shd.sharded(make_train_step(cfg, tc), (None, shd.batch_specs(batch)))
+        before = (k1.launches, k5.launches, k6.launches)
+        s_s, m_s = step(state, batch)
+        launched = [a - b for a, b in zip((k1.launches, k5.launches, k6.launches), before)]
+        assert launched == [2 * cfg.n_layers, cfg.n_layers, 0], launched
+        for key in ("loss", "grad_norm"):
+            assert abs(float(m_s[key]) - float(m_u[key])) <= 1e-5 * abs(float(m_u[key])), key
+        for a, b in zip(tree_leaves(s_s.params), tree_leaves(s_u.params)):
+            assert float((a.full_tensor() - b).abs().max()) <= 1e-6
+    finally:
+        dist.destroy_process_group()
+
+
 def test_adamw_chunked_update_is_the_whole_tree_update(cuda, monkeypatch):
     """AdamW on the card, each leaf in passes that write their outputs in
     place (`optim.adamw.UPDATE_CHUNK`, here 1000 elements: ragged on a

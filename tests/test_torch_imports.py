@@ -42,7 +42,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.optim, repro_torch.train, repro_torch.data, repro_torch.tree\n"
         "import repro_torch.runtime.checkpoint, repro_torch.runtime.resilience\n"
         "import repro_torch.launch.train, repro_torch.kernels.flashd_bwd\n"
-        "import repro_torch.kernels.fa2_fwd\n"
+        "import repro_torch.kernels.fa2_fwd, repro_torch.distributed.sharding\n"
         "import repro_torch.runtime.quant, repro_torch.serve.speculative, repro_torch.serve.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
         "assert not bad, bad\n"

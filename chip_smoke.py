@@ -77,12 +77,12 @@ non-zero:
      scheduled `grad_step` fault gives the clean run's loss curve (the same
      steps, no checkpoint) bit for bit, and the restored checkpoint serves
      the in-memory weights' tokens;
- 15. the quantized pool (`kv_dtype` int8 and fp8) at full width, f32: phase
-     9's requests through the paged and the mixed loops, captured (K3 / K4
-     launched), and captured = eager (tokens, launches, host syncs, the
-     allocator) on phase 5's short workload (2 requests, 8 new); the 4
-     shortest requests alone on the int8 paged loop (phase 17's baseline);
-     the sequential and packed write paths fed the
+ 15. the quantized pool (`kv_dtype` int8 and fp8) at full width, f32: the
+     4 shortest of phase 9's requests (one wave; the int8 paged run is
+     phase 17's baseline) through the paged and the mixed loops, captured
+     (K3 / K4 launched), and captured = eager (tokens, launches, host
+     syncs, the allocator) on phase 5's short workload (2 requests, 8
+     new); the sequential and packed write paths fed the
      same K/V rows store byte-equal pages and scales (an identity-weight
      layer, so the packed step's K/V are its rows); K3 and K4 on the pages
      the engines wrote against their plain versions; teacher-forced, the
@@ -178,6 +178,18 @@ non-zero:
      relative gap printed, K1 and K5 launched through the attention island
      with the plain routes refused, K6 not launched; host and device-busy
      ms per step of both;
+ 23. context parallelism (`repro_torch.distributed.context`) on one card
+     (`_cp_phase`): the ranks of a 4-way ring emulated with the functions
+     each rank runs — K1 and K6 hops at hop offsets (`ring_hop`), folded
+     in the ranks' order — at qwen3-0.6b's attention shape (B 1, S 16384)
+     for causal, local and chunked masks against the unsharded kernel; the
+     per-shard K2 partials of `cp_decode` (`decode_partial`: `start`,
+     `return_lam`) on a 16384-slot cache at B 2, ragged with empty shards,
+     merged in the butterfly's order (bitwise equal on every rank) against
+     unsharded K2; then `Engine.generate` on a (1,) mesh of a 1-rank NCCL
+     group (DTensor parameters and cache) at phase 5's model, tokens equal
+     to the unsharded engine's. The cross-rank route itself needs more
+     than one card: `tools/cp_ranks.py` under torchrun;
  14. (last) the kernels line (JSON) and the total seconds, then the result
      line (JSON).
 
@@ -2145,6 +2157,191 @@ def _sharded_phase(dev, bt: int = 2, st: int = 1024):
     return text, launched
 
 
+CP_SEQ, CP_SHARDS = 16384, 4  # phase 23: the ring's S over its emulated ranks (B 1)
+CP_WINDOW = 6000  # phase 23's local mask: hops 0–2 of shards of 4096 live, hop 3 pruned
+CP_CACHE_LEN = (16384, 5000)  # phase 23's cp_decode rows: all four shards; shard 0, 1 and two empty
+CP_PROMPT, CP_NEW = 16, 8  # phase 23's engine: B 2, a step ~130 ms eager under DTensor
+
+
+def _cp_phase(dev, flush):
+    """Phase 23: context parallelism (`repro_torch.distributed.context`) on
+    one card. The card's machine has one H100, where `cp_axis_for_cache`
+    gives no axis, so the ranks are emulated with the functions each rank
+    calls: the ring's hops (`ring_hop`: K1 or K6 at hop offset h·shard,
+    'full' where the hop is inside the mask, nothing for a wrapped shard)
+    on each emulated rank's q shard against the KV shard it holds at that
+    hop, folded in the ranks' order, against the unsharded kernel (O and Λ
+    within F32_TOL) at qwen3-0.6b's attention shape (B 1, Hq 16, Hkv 8, d
+    128, S CP_SEQ) for causal, local and chunked (chunk = shard) masks; the
+    shard partials of `cp_decode` (`decode_partial`: K2 with `start` and
+    `return_lam` on each shard's clip) merged by the butterfly's order
+    (`butterfly_merge`), bitwise equal on every emulated rank, against
+    unsharded K2 within F32_TOL. Timed: the unsharded kernel, the hops'
+    sum and the slowest rank's hops (its share of the work on four cards,
+    the wire left out); K2 unsharded and per shard. Then `Engine.generate`
+    under a (1,) ('data',) mesh on a 1-rank NCCL group (DTensor parameters
+    and cache, eager) at phase 5's model (seeded anew), tokens equal to the
+    unsharded engine's, captured and eager, K2 launched. Returns (text, {kernel: the sharded engine's
+    launches}, {kernel: the phase's fields of its kernels-line row})."""
+    import logging
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.blockwise import MaskSpec, merge_pair
+    from repro_torch.devices import make_mesh
+    from repro_torch.distributed import context as cpx
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import fa2_fwd as k6
+    from repro_torch.kernels import flashd_decode as k2
+    from repro_torch.kernels import flashd_fwd as k1
+    from repro_torch.kernels.tuning import choose_ring_schedule
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=QWEN_LAYERS, dtype="float32")
+    b, hq, hkv, d, s, n = 1, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_, CP_SEQ, CP_SHARDS
+    s_sh, scale = s // n, d ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(23)
+    q = torch.randn(b, hq, s, d, generator=gen, device=dev)  # kernel layout
+    k = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    v = torch.randn(b, hkv, s, d, generator=gen, device=dev)
+    shard = lambda x, i: x[:, :, i * s_sh:(i + 1) * s_sh]  # noqa: E731
+    masks = {"causal": MaskSpec("causal"), "local": MaskSpec("local", window=CP_WINDOW),
+             "chunked": MaskSpec("chunked", chunk=s_sh)}
+    kernels = {"flashd_gpu": k1.flashd_fwd, "fa2_gpu": k6.fa2_fwd}
+    ring_rows, errs, times = [], {}, {}
+    _zero_launches()
+    for name, mask in masks.items():
+        sched = choose_ring_schedule(s_sh, s_sh, d, d, n_devices=n, mask=mask)
+        for impl, whole in kernels.items():
+            o_ref, lam_ref = whole(q, k, v, mask=mask, scale=scale)
+
+            def rank_hops(r, impl=impl, mask=mask, sched=sched):
+                """Rank r's hops: the KV shard it holds at hop h came from r − h."""
+                return [cpx.ring_hop(shard(q, r), shard(k, (r - h) % n), shard(v, (r - h) % n),
+                                     idx=r, h=h, mask=mask, scale=scale, impl=impl,
+                                     block_q=sched.block_q, block_k=sched.block_k)
+                        for h in range(sched.n_hops)]
+
+            o_parts, lam_parts = [], []
+            for r in range(n):
+                parts = [p_ for p_ in rank_hops(r) if p_ is not None]
+                carry = parts[0]
+                for part in parts[1:]:
+                    carry = merge_pair(carry, part)
+                o_parts.append(carry[0])
+                lam_parts.append(carry[1])
+            err = max(_err(torch.cat(o_parts, 2), o_ref), _err(torch.cat(lam_parts, 2), lam_ref))
+            assert err <= F32_TOL, ("phase 23 ring", name, impl, err)
+            errs[name, impl] = err
+            if name == "causal":  # the work split: unsharded, all hops, the slowest rank's
+                ranks = [_time_ms(lambda r=r: rank_hops(r), reps=5, flush=flush)
+                         for r in range(n)]
+                times[impl] = (_time_ms(lambda: whole(q, k, v, mask=mask, scale=scale),
+                                        reps=5, flush=flush), sum(ranks), max(ranks))
+            ring_rows.append(f"{name} {impl} {sched.n_hops} hops err {err:.2e}")
+    emulated = _launches()
+
+    # cp_decode's shard partials through the butterfly's merge order
+    bd = 2
+    qd = torch.randn(bd, hq, d, generator=gen, device=dev)
+    kc = torch.randn(bd, s, hkv, d, generator=gen, device=dev)  # model layout
+    vc = torch.randn(bd, s, hkv, d, generator=gen, device=dev)
+    cl = torch.tensor(CP_CACHE_LEN, device=dev)
+    o_whole = k2.flashd_decode(qd, kc.transpose(1, 2), vc.transpose(1, 2), cl)
+
+    def partials():
+        return [cpx.decode_partial(qd, kc[:, r * s_sh:(r + 1) * s_sh],
+                                   vc[:, r * s_sh:(r + 1) * s_sh], cl, idx=r, scale=scale)
+                for r in range(n)]
+
+    held = partials()
+    step = 1
+    while step < n:
+        held = [cpx.butterfly_merge(held[r], held[r ^ step], r, step) for r in range(n)]
+        step *= 2
+    for r in range(1, n):
+        assert torch.equal(held[r][0], held[0][0]), ("phase 23: ranks' O differ", r)
+    dec_err = _err(held[0][0], o_whole)
+    assert dec_err <= F32_TOL, ("phase 23 cp_decode", dec_err)
+    whole_k2 = lambda: k2.flashd_decode(qd, kc.transpose(1, 2), vc.transpose(1, 2), cl)  # noqa: E731
+    k2_ms, k2_dev_ms = _time_ms(whole_k2, flush=flush), _device_ms(whole_k2, flush)
+    shard_calls = [lambda r=r: cpx.decode_partial(
+        qd, kc[:, r * s_sh:(r + 1) * s_sh], vc[:, r * s_sh:(r + 1) * s_sh], cl, idx=r,
+        scale=scale) for r in range(n)]
+    k2_shard_ms = [_time_ms(fn, flush=flush) for fn in shard_calls]
+    k2_shard_dev_ms = [_device_ms(fn, flush) for fn in shard_calls]  # the clip's kernels too
+    emulated["flashd_decode"] = _launches()["flashd_decode"]
+    del q, k, v, kc, vc, held
+
+    # the engine under a (1,) mesh on a 1-rank NCCL group
+    store = os.path.join(HERE, "build", f"phase23_store_{os.getpid()}")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0, world_size=1)
+    params = init_lm(cfg, device=dev, seed=0)
+    prompts = np.random.default_rng(23).integers(0, cfg.vocab_size, (2, CP_PROMPT))
+    sc = ServeConfig(max_len=CP_PROMPT + CP_NEW)
+
+    def timed_generate(eng):
+        t = time.perf_counter()
+        toks = eng.generate(prompts, CP_NEW)
+        return toks, time.perf_counter() - t
+
+    captured = Engine(params, cfg, sc, device=dev)
+    want, _ = timed_generate(captured)  # captures its graphs
+    _, captured_s = timed_generate(captured)
+    eager_toks, eager_s = timed_generate(Engine(params, cfg, sc, device=dev, graphs=False))
+    ctx = shd.ShardingCtx(make_mesh((1,), ("data",), device="cuda"))
+    eng = Engine(params, cfg, sc, device=dev, sharding_ctx=ctx)
+    _zero_launches()
+    got, sharded_s = timed_generate(eng)
+    launched = _launches()
+    for toks in (got, eager_toks):
+        assert np.array_equal(toks, want), "phase 23: the sharded engine's tokens differ"
+    assert eng.host_syncs == 1 and launched["flashd_decode"] > 0, (eng.host_syncs, launched)
+    placements = tuple(eng._contig[2].cache["blocks"]["pos0"]["k"].placements)
+    del eng, captured, params
+    dist.destroy_process_group()
+    os.remove(store)
+    steps = CP_PROMPT + CP_NEW - 1
+    rows = {"flashd_fwd": {"cp_emulated_launches": emulated["flashd_fwd"],
+                           "cp_max_abs_err": max(e for (m, i), e in errs.items()
+                                                 if i == "flashd_gpu"),
+                           "cp_unsharded_ms": times["flashd_gpu"][0],
+                           "cp_hops_sum_ms": times["flashd_gpu"][1],
+                           "cp_slowest_rank_ms": times["flashd_gpu"][2]},
+            "fa2_fwd": {"cp_emulated_launches": emulated["fa2_fwd"],
+                        "cp_max_abs_err": max(e for (m, i), e in errs.items() if i == "fa2_gpu"),
+                        "cp_unsharded_ms": times["fa2_gpu"][0],
+                        "cp_hops_sum_ms": times["fa2_gpu"][1],
+                        "cp_slowest_rank_ms": times["fa2_gpu"][2]},
+            "flashd_decode": {"cp_emulated_launches": emulated["flashd_decode"],
+                              "cp_max_abs_err": dec_err, "cp_unsharded_ms": k2_ms,
+                              "cp_unsharded_device_ms": k2_dev_ms, "cp_shard_ms": k2_shard_ms,
+                              "cp_shard_device_ms": k2_shard_dev_ms}}
+    text = (f"context parallelism, {n} emulated ranks: ring at B {b} Hq {hq} Hkv {hkv} d {d} S "
+            f"{s} (shards of {s_sh}, local window {CP_WINDOW}, chunk {s_sh}) against the "
+            f"unsharded kernel (O, Λ; bound {F32_TOL}): {', '.join(ring_rows)}; causal ms "
+            f"(unsharded, sum of hops, slowest rank): "
+            + ", ".join(f"{i} {t_[0]:.3f} / {t_[1]:.3f} / {t_[2]:.3f}" for i, t_ in times.items())
+            + f"; cp_decode B {bd} S {s} cache_len {list(CP_CACHE_LEN)}: ranks bitwise equal, "
+            f"err {dec_err:.2e} against unsharded K2 (events / device {k2_ms * 1e3:.2f} / "
+            f"{k2_dev_ms * 1e3:.2f} us; a shard's call with its clip "
+            f"{', '.join(f'{x * 1e3:.2f} / {y * 1e3:.2f}' for x, y in zip(k2_shard_ms, k2_shard_dev_ms))}"
+            f" us); emulation launches {emulated}; engine on a (1,) mesh (cache {placements}), 2 "
+            f"prompts of {CP_PROMPT}, {CP_NEW} new: tokens equal the unsharded engine's (captured "
+            f"and eager), 1 host sync, launches {launched}; ms a step: sharded (eager, the "
+            f"first call) {sharded_s / steps * 1e3:.1f}, unsharded eager "
+            f"{eager_s / steps * 1e3:.1f}, captured {captured_s / steps * 1e3:.1f}")
+    return text, launched, rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3117,20 +3314,23 @@ def main() -> int:
     from repro_torch.models.transformer import _packed_attn, _paged_attn_step
     from repro_torch.runtime import quant
 
+    # the byte pools serve the 4 shortest of phase 9's requests (one wave of
+    # max_batch 4; phase 17's int8 baseline is the int8 paged run)
     short = [reqs[i] for i in sorted(range(len(reqs)), key=lambda i: len(reqs[i]))[:4]]
+    native_short = [kern["serve"][i] for i in sorted(range(len(reqs)),
+                                                     key=lambda i: len(reqs[i]))[:4]]
     quant_report, quant_launches, quant_toks, quant_engines = [], {}, {}, {}
-    quant_short = {}  # the captured int8 paged run on the 4 shortest (phase 17's baseline)
     for kv in ("int8", "fp8"):
         for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
             qsc = ServeConfig(max_batch=4, max_len=512, kv_dtype=kv, **kw)
             eng = Engine(params, cfg, qsc, device=dev)
             reset_counts()  # this path's main-path run (captured steps) starts here
-            run = pool_serve(eng, reqs)
+            run = pool_serve(eng, short)
             got = (k2.paged_launches, k4.launches)
             assert got[0] > 0 and (got[1] > 0) == (mode == "mixed"), (kv, mode, got)
             quant_launches[kv, mode] = got
             seen = counts()
-            plain_run = pool_serve(Engine(params, plain_cfg, qsc, device=dev), reqs)
+            plain_run = pool_serve(Engine(params, plain_cfg, qsc, device=dev), short)
             assert counts() == seen, f"{kv} {mode}: the plain path launched a kernel"
             # kernel and plain attention differ by summation order (≤ 5e-5); on a
             # byte pool that can move a later layer's K/V across a rounding edge,
@@ -3145,23 +3345,16 @@ def main() -> int:
                 e._alloc.check()
                 assert e.stats()["pages_in_use"] == e.stats()["cached_pages"], "pages leaked"
             del oracle_engines
-            if (kv, mode) == ("int8", "paged"):  # phase 17's baseline: the 4 shortest alone
-                quant_short[kv, mode] = pool_serve(Engine(params, cfg, qsc, device=dev),
-                                                   short)["toks"]
-                by_req = {id(r): t for r, t in zip(reqs, run["toks"])}
-                in_8 = [by_req[id(r)] for r in short]
-                oracle_text += (f"; the 4 shortest alone against the same requests in the "
-                                f"8-request run: {_agreement(quant_short[kv, mode], in_8)}")
             qst = run["stats"]
             assert qst["kv_dtype"] == kv and eng._paged.cache["blocks"]["pos0"]["k_pages"].dtype \
                 == quant.get_spec(kv).dtype
             eng._alloc.check(eng._paged.cache)
             quant_toks[kv, mode], quant_engines[kv, mode] = run["toks"], eng
             quant_report.append(
-                f"{kv} {mode}: captured {n_serve / run['s']:.1f} tok/s, mean TTFT "
-                f"{run['ttft'] * 1e3:.1f} ms ({oracle_text}); "
+                f"{kv} {mode}: captured {sum(map(len, run['toks'])) / run['s']:.1f} tok/s, "
+                f"mean TTFT {run['ttft'] * 1e3:.1f} ms ({oracle_text}); "
                 f"kernel vs plain tokens {vs_plain}; vs the native pool's "
-                f"{_agreement(run['toks'], kern['serve'])}; kv_bytes_per_token "
+                f"{_agreement(run['toks'], native_short)}; kv_bytes_per_token "
                 f"{qst['kv_bytes_per_token']:.1f} (page {eng._page_layout.page_size}, "
                 f"{eng._page_layout.n_pages} pages)")
         quant_report.append(f"{kv} paged vs mixed tokens "
@@ -3174,8 +3367,7 @@ def main() -> int:
     # (tests/test_quant.py::test_logprob_drift_bound)
     drift = {}
     for kv in ("int8", "fp8"):
-        streams = [np.concatenate([r, t_]) for r, t_ in zip(reqs, quant_toks[kv, "paged"])
-                   if any(r is x for x in short)]
+        streams = [np.concatenate([r, t_]) for r, t_ in zip(short, quant_toks[kv, "paged"])]
         n_f = min(map(len, streams))
         streams = torch.as_tensor(np.stack([x[:n_f] for x in streams]), device=dev).long()
         n_tf = -(-n_f // 64)
@@ -3353,7 +3545,8 @@ def main() -> int:
                 4 * d * hq * vis_)
     q_times = "; ".join(f"{k_} {n_} device {v_ * 1e3:.2f} us (bound {q_bound[k_, n_] * 1e3:.2f} us)"
                         for (k_, n_), v_ in q_t.items())
-    _line(15, f"quantized pool, qwen3-0.6b f32 full width, phase 9's 8 requests, 32 new, "
+    _line(15, f"quantized pool, qwen3-0.6b f32 full width, the 4 shortest of phase 9's "
+              f"requests, 32 new, "
               f"max_batch 4, max_len 512: {'; '.join(quant_report)}; teacher-forced max "
               f"|Δ log p| (4 streams, positions, kernel vs plain on the same format, kernel vs "
               f"native; bound 0.1 on the first): "
@@ -3382,12 +3575,12 @@ def main() -> int:
              ("2-layer draft", "", lambda: (dparams, dcfg))]
     for mode, kw in (("paged", dict(kv_layout="paged")), ("mixed", dict(step_mode="mixed"))):
         mode_cases = cases + [("oracle 0.5 int8", "int8", lambda m=mode: OracleDraft(
-            reqs, quant_toks["int8", m], cfg.vocab_size, accuracy=0.5, seed=0))]
+            short, quant_toks["int8", m], cfg.vocab_size, accuracy=0.5, seed=0))]
         for name, kv, mk in mode_cases:
             ssc = ServeConfig(max_batch=4, max_len=512, spec_tokens=4, kv_dtype=kv, **kw)
             eng = Engine(params, cfg, ssc, device=dev, draft=mk())
             reset_counts()  # this path's main-path run (captured steps) starts here
-            run = pool_serve(eng, reqs)
+            run = pool_serve(eng, short if kv else reqs)  # int8: phase 15's requests
             got = {"flashd_decode": k2.launches, "flashd_decode_paged": k2.paged_launches,
                    "flashd_varlen": k4.launches}
             assert got["flashd_varlen"] > 0, (mode, name, got)
@@ -3409,7 +3602,7 @@ def main() -> int:
                 f"{mode} {name}: {same}; acceptance {sst['spec_acceptance_rate']:.3f}, "
                 f"{sst['spec_mean_accepted']:.2f} accepted a verify segment "
                 f"({sst['spec_rounds']} segments, {sst['host_syncs']} host syncs), "
-                f"{n_serve / run['s']:.1f} tok/s (non-speculative, phase 9: "
+                f"{sum(map(len, run['toks'])) / run['s']:.1f} tok/s (non-speculative, phase 9: "
                 f"{pool_tps[mode]:.1f}), mean TTFT {run['ttft'] * 1e3:.1f} ms, launches "
                 f"K2/K3/K4 {tuple(got.values())}, graphs {run['captures']}")
             del eng
@@ -3422,7 +3615,7 @@ def main() -> int:
     ph = _Phase()
     fault_tps = {"contiguous": n_serve / kern["serve_s"], **pool_tps}
     chaos_text, chaos_launches = _fault_phase(params, cfg, reqs, kern["serve"], fault_tps,
-                                              quant_short["int8", "paged"], dev)
+                                              quant_toks["int8", "paged"], dev)
     _line(17, f"{chaos_text} {ph}")
 
     # ---- 18. llama4-scout at full width, 4 layers (A12: MoE + chunked attention) ----
@@ -3462,6 +3655,12 @@ def main() -> int:
     gc.collect()
     sh_text, sh_launches = _sharded_phase(dev)
     _line(22, f"{sh_text} {ph}")
+
+    # ---- 23. context parallelism: the ranks' hops and shard partials, the engine on a mesh ----
+    ph = _Phase()
+    gc.collect()
+    cp_text, cp_launches, cp_rows = _cp_phase(dev, flush)
+    _line(23, f"{cp_text} {ph}")
 
     # ---- 14. kernels line, result line ----
     kernels = [
@@ -3576,6 +3775,11 @@ def main() -> int:
     # phase 22: the sharded train step's launches (K1 forward, K5 backward)
     kernels[0]["sharded_launches"] = sh_launches["flashd_fwd"]
     kernels[4]["sharded_launches"] = sh_launches["flashd_bwd"]
+    # phase 23: the engine on a (1,) mesh (K2), the emulated ranks' K1 / K6
+    # hops and K2 shard partials
+    for row in kernels:
+        row["cp_engine_launches"] = cp_launches[row["name"]]
+        row.update(cp_rows.get(row["name"], {}))
     _line(14, f"{len(kernels)} ported kernels: {[kk['name'] for kk in kernels]}; all phases "
               f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,8 +41,12 @@ each rank's local heads (K1 / K6 forward and K5 backward on the card):
 heads go over 'model' only when both Hq and Hkv divide it — contiguous
 shards then keep q head i beside kv head ⌊i/G⌋ — and otherwise the batch
 goes over every mesh axis that divides it (the reference's full-DP
-fallback). The context-parallel routes (`maybe_ring_prefill`,
-`maybe_cp_decode`) are not ported yet (A13 b).
+fallback). Under a context that opts into prefill context parallelism
+(`cp_prefill=True`) and sequence-shards these operands, `flash_attention`
+first takes the ring (`distributed.context.maybe_ring_prefill`: per-shard
+K1 / K6 and the cross-rank Λ-merge, forward only); `decode_attention`
+takes `maybe_cp_decode` on a sequence-sharded cache, with the plain
+per-shard partial, as the reference does.
 """
 
 from __future__ import annotations
@@ -179,6 +183,12 @@ def flash_attention(
     uses_kernel(impl, q)  # validates the impl name
     if impl == "xla":
         return _xla_attention(q, k, v, mask, scale)
+    from repro_torch.distributed.context import maybe_ring_prefill  # lazy: no cycle
+
+    o_cp = maybe_ring_prefill(q, k, v, mask=mask, scale=scale, impl=impl, block_q=block_q,
+                              block_k=block_k, skip=skip)
+    if o_cp is not None:
+        return o_cp
     if shd.is_dtensor(q):
         return _attention_island(q, k, v, mask, scale, impl, block_q, block_k, skip)
     return _FlashAttention.apply(q, k, v, mask, scale, impl, block_q, block_k, skip)
@@ -237,6 +247,14 @@ def decode_attention(
     g = hq // hkv
     if scale is None:
         scale = float(1.0 / (d ** 0.5))
+    from repro_torch.distributed.context import maybe_cp_decode  # lazy: no cycle
+
+    # a sequence-sharded cache: the plain per-shard partials, merged across
+    # ranks (the reference's choice, kernel or not)
+    o_cp = maybe_cp_decode(q, k_cache, v_cache, cache_len, scale=scale, window=window,
+                           chunk=chunk, n_splits=n_splits, use_kernel=False)
+    if o_cp is not None:
+        return o_cp
     if n_splits is None:
         from repro_torch.kernels.tuning import choose_decode_split  # lazy: no cycle
 

@@ -1,7 +1,9 @@
 """Multi-device layer of the port (`repro/distributed`): the sharding rules
-engine on a torch `DeviceMesh` / DTensor. Context parallelism and the
-pipeline are not ported yet."""
+engine on a torch `DeviceMesh` / DTensor, and context parallelism (ring
+prefill and the cross-rank decode merge over `torch.distributed`). The
+pipeline is not ported yet."""
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import context, sharding
+from repro_torch.distributed.context import cp_decode, ring_prefill
 
-__all__ = ["sharding"]
+__all__ = ["context", "sharding", "cp_decode", "ring_prefill"]

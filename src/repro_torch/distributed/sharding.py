@@ -53,6 +53,7 @@ __all__ = [
     "placements",
     "distribute_tree",
     "replicate_like",
+    "shard_range",
     "sharded",
     "is_dtensor",
 ]
@@ -81,9 +82,11 @@ class ShardingCtx:
                  use_cp: bool = True, cp_prefill: bool = False):
         """mesh: a `DeviceMesh` with `mesh_dim_names`. fsdp_axis: 'data'
         (params replicate across pods) or ('pod', 'data') (ZeRO across
-        pods too). use_cp / cp_prefill: the reference's context-parallel
-        switches, read by `cp_axis_for_cache` (the CP routes themselves
-        come with context parallelism)."""
+        pods too). use_cp: sequence-shard a cache the kv_cache rule cannot
+        batch-shard, and route its decode through `distributed.context`
+        (`cp_axis_for_cache`); cp_prefill: route prefill attention on such
+        operands through the ring (`maybe_ring_prefill`), off by default
+        as in the reference."""
         self.mesh = mesh
         self.axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
         self.use_sp = use_sp
@@ -320,22 +323,31 @@ def vocab_island(fn, x, dim: int, ids):
     # where x is whole beside a split batch
     grad_pl = tuple(Partial() if p.is_replicate() and i.is_shard() else p
                     for p, i in zip(x_pl, ids_pl))
-    coord = mesh.get_coordinate()
-    first, rows = 0, x.shape[dim]
-    for i, v in enumerate(vocab):  # DTensor splits a dim over its mesh dims in order
-        if v:
-            rows //= mesh.size(i)
-            first += coord[i] * rows
+    first, rows = shard_range(x, dim)
     out = local_map(lambda x_, i_: fn(x_, i_, first, rows), out_placements=(part_pl,),
                     in_placements=(x_pl, ids_pl), in_grad_placements=(grad_pl, ids_pl),
                     device_mesh=mesh, redistribute_inputs=True)(x, ids)
     return out.redistribute(mesh, tuple(Replicate() if v else p for v, p in zip(vocab, ids_pl)))
 
 
+def shard_range(x, dim: int) -> Tuple[int, int]:
+    """(first, rows): this rank's range along `dim` of DTensor x. DTensor
+    splits a dim held by several mesh dims in mesh-dim order."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    first, rows = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            rows //= mesh.size(i)
+            first += coord[i] * rows
+    return first, rows
+
+
 def replicate_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A constant built inside a step (positions, masks, rope tables) as a
-    replicated DTensor on `like`'s mesh when `like` is a DTensor; else `t`."""
-    if not is_dtensor(like):
+    replicated DTensor on `like`'s mesh when `like` is a DTensor; else `t`
+    (a DTensor `t` is returned as it is)."""
+    if not is_dtensor(like) or is_dtensor(t):
         return t
     from torch.distributed.tensor import DTensor, Replicate
 

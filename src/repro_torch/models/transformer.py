@@ -56,13 +56,16 @@ from repro_torch.core.attention import (
     varlen_attention,
 )
 from repro_torch.devices import resolve_device
+from repro_torch.distributed.context import maybe_cp_decode
 from repro_torch.distributed.sharding import (
     P,
+    activate,
     active_ctx,
     is_dtensor,
     placements,
     replicate_like,
     shard,
+    shard_range,
     spec_for,
     vocab_island,
 )
@@ -285,10 +288,16 @@ def _apply_attn(p, x, cfg: ModelConfig, kind: str, positions, kv_x=None):
     b, s = x.shape[:2]
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim_)
     if is_dtensor(o):
-        # pinned to its placements: the backward brings the gradient back to
-        # them before un-merging the heads (a gradient sharded over more
-        # ranks than H divides by cannot be unflattened)
-        o = o.redistribute(o.device_mesh, o.placements)
+        # the sequence whole (a split one — the ring's output, or the heads
+        # spec at a batch too small to split — cannot be flattened by the
+        # product on the card's torch), then pinned to those placements: the
+        # backward brings the gradient back to them before un-merging the
+        # heads (a gradient sharded over more ranks than H divides by cannot
+        # be unflattened)
+        from torch.distributed.tensor import Replicate
+
+        o = o.redistribute(o.device_mesh, tuple(Replicate() if p.is_shard(1) else p
+                                                for p in o.placements))
     return torch.matmul(o, p["wo"].to(cfg.compute_dtype))
 
 
@@ -629,7 +638,10 @@ def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos):
     block table (paged). pos [B] absolute position. A ring is read over
     its first min(pos + 1, len) slots (local) or pos % len + 1 (chunked),
     with no window or chunk passed on: the slots are not in position
-    order."""
+    order. A sequence-sharded cache (context parallel) is read through
+    `maybe_cp_decode` — each rank's shard partial (K2 on the kernel
+    route), merged across ranks — and any other DTensor cache on each
+    rank's shard (`_on_cache_shards`)."""
     b = x.shape[0]
     q, k, v = _qkv(p, x, cfg, kind, pos[:, None])
     if "k_pages" in cache:
@@ -639,23 +651,81 @@ def _decode_attn(p, x, cfg: ModelConfig, kind: str, cache, pos):
     k_cache, v_cache = cache["k"], cache["v"]  # [B, S_max, Hkv, hd] views
     s_len = k_cache.shape[1]
     write_idx = pos % s_len
-    bidx = torch.arange(b, device=x.device)
-    k_cache[bidx, write_idx] = k[:, 0]
-    v_cache[bidx, write_idx] = v[:, 0]
+    _write_rows(k_cache, v_cache, k, v, write_idx)
     if kind == "attn_local":
         eff_len = torch.clamp(pos + 1, max=s_len)
     elif kind == "attn_chunked":
         eff_len = write_idx + 1
     else:
         eff_len = pos + 1
-    if uses_kernel(cfg.attn_impl, x):
-        from repro_torch.kernels import ops  # lazy: no cycle
-
-        o = ops.get_op("decode")(q, k_cache, v_cache, eff_len)
-    else:
-        o = decode_attention(q, k_cache, v_cache, eff_len)
+    use_kernel = uses_kernel(cfg.attn_impl, x)
+    o = maybe_cp_decode(q, k_cache, v_cache, eff_len, use_kernel=use_kernel)
+    if o is None:
+        o = _on_cache_shards(_decode_rows if use_kernel else decode_attention,
+                             q, k_cache, v_cache, eff_len)
     o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim_)
     return torch.matmul(o, p["wo"].to(cfg.compute_dtype))
+
+
+def _decode_rows(q, k_cache, v_cache, eff_len):
+    from repro_torch.kernels import ops  # lazy: no cycle
+
+    return ops.get_op("decode")(q, k_cache, v_cache, eff_len)
+
+
+def _beside_cache(cache):
+    """Placements for the operands of a step on DTensor cache [B, S, H, hd]'s
+    shards: (those of [B, ·, H, ·] rows — the cache's with the sequence
+    whole —, those of a [B] vector)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    rows = tuple(Replicate() if p.is_shard(1) else p for p in cache.placements)
+    batch = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in cache.placements)
+    return rows, batch
+
+
+def _write_rows(k_cache, v_cache, k, v, write_idx) -> None:
+    """This token's K / V [B, 1, Hkv, hd] into slot write_idx [B] of the
+    caches, in place. A DTensor cache is written on each rank's local
+    shard: a row whose slot lies in another rank's sequence range writes
+    back what the rank's clamped slot already holds."""
+    if not is_dtensor(k_cache):
+        bidx = torch.arange(k.shape[0], device=k.device)
+        k_cache[bidx, write_idx] = k[:, 0]
+        v_cache[bidx, write_idx] = v[:, 0]
+        return
+    mesh = k_cache.device_mesh
+    rows_pl, batch_pl = _beside_cache(k_cache)
+    w = replicate_like(write_idx, k_cache).redistribute(mesh, batch_pl).to_local()
+    first, n = shard_range(k_cache, 1)
+    here = ((w >= first) & (w < first + n))[:, None, None]
+    slot = torch.clamp(w - first, 0, n - 1)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        local = cache.to_local()  # the DTensor's own storage: written in place
+        new = new.redistribute(mesh, rows_pl).to_local()[:, 0]
+        bidx = torch.arange(local.shape[0], device=local.device)
+        local[bidx, slot] = torch.where(here, new, local[bidx, slot])
+
+
+def _on_cache_shards(fn, q, k_cache, v_cache, eff_len):
+    """`fn(q, k_cache, v_cache, eff_len)` → o [B, 1, Hq, dv]; on a DTensor
+    cache, on each rank's batch and head shard of plain local tensors (the
+    sequence gathered if it was split), with no sharding context active
+    inside."""
+    if not is_dtensor(k_cache):
+        return fn(q, k_cache, v_cache, eff_len)
+    from torch.distributed.tensor.experimental import local_map
+
+    rows_pl, batch_pl = _beside_cache(k_cache)
+
+    def local(q_, k_, v_, l_):
+        with activate(None):
+            return fn(q_.contiguous(), k_, v_, l_)
+
+    return local_map(local, out_placements=(rows_pl,), in_placements=(rows_pl, rows_pl, rows_pl,
+                                                                      batch_pl),
+                     device_mesh=k_cache.device_mesh, redistribute_inputs=True)(
+        q, k_cache, v_cache, replicate_like(eff_len, k_cache))
 
 
 def _last_writer(dest: torch.Tensor) -> torch.Tensor:
@@ -706,7 +776,25 @@ def _paged_attn_step(q, k, v, cfg: ModelConfig, cache, pos):
     by the slot-0 rule on a quantized pool, `_write_pool`), then attend
     through the table (K3 on the card). Writes past the table (dead slots
     whose `pos` keeps advancing in the lockstep batch) land on the garbage
-    page 0. → o [B, 1, Hq, hd]."""
+    page 0. → o [B, 1, Hq, hd].
+
+    Under a sharding context, as the reference: the pages are gathered
+    into the [B, S, Hkv, hd] shape the rules engine reasons about, and a
+    sequence-sharded one is read through `maybe_cp_decode`. A DTensor pool
+    must be replicated; the step then runs on each rank's whole copy and
+    returns a replicated DTensor."""
+    if is_dtensor(cache["k_pages"]):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = cache["k_pages"].device_mesh
+        whole = [Replicate()] * mesh.ndim
+        if any(tuple(leaf.placements) != tuple(whole) for leaf in cache.values()):
+            raise ValueError("a paged pool under a sharding context must be replicated")
+        local = {name: leaf.to_local() for name, leaf in cache.items()}
+        q, k, v, pos = (replicate_like(x, q).redistribute(mesh, whole).to_local()
+                        for x in (q, k, v, pos))
+        o = _paged_attn_step(q, k, v, cfg, local, pos)
+        return DTensor.from_local(o, mesh, whole, run_check=False)
     b = q.shape[0]
     k_pages, v_pages, tbl = cache["k_pages"], cache["v_pages"], cache["tbl"]
     page, n_tbl = k_pages.shape[1], tbl.shape[1]
@@ -717,6 +805,14 @@ def _paged_attn_step(q, k, v, cfg: ModelConfig, cache, pos):
     _write_pool(cache, k[:, 0], v[:, 0], pid, slot, slot == 0, cfg)
     eff_len = pos + 1
     scales = dict(k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
+    if active_ctx() is not None:
+        from repro_torch.core.attention import _zero_past, gather_pages  # lazy: no cycle
+
+        o = maybe_cp_decode(q, _zero_past(gather_pages(k_pages, tbl, scales["k_scale"]), eff_len),
+                            _zero_past(gather_pages(v_pages, tbl, scales["v_scale"]), eff_len),
+                            eff_len, use_kernel=uses_kernel(cfg.attn_impl, q))
+        if o is not None:
+            return o
     if uses_kernel(cfg.attn_impl, q):
         from repro_torch.kernels import ops  # lazy: no cycle
 
@@ -747,7 +843,10 @@ def _run_cached_groups(params: dict, cache: dict, h, cfg: ModelConfig, block_ste
 
 
 def _decode_hidden(params, cache, token, pos, cfg: ModelConfig):
-    """Final-normed hidden state [B, 1, D] of one decode step."""
+    """Final-normed hidden state [B, 1, D] of one decode step. With DTensor
+    parameters, a plain token is taken as replicated (pos stays plain: the
+    rope tables and the cache islands take it so)."""
+    token = replicate_like(token, params["embed"])
     h = embed_lookup(params["embed"], token[:, None], cfg.compute_dtype)
 
     def block_step(bp, bc, h, pattern):
@@ -768,7 +867,9 @@ def decode_hidden_lm(params: dict, cache: dict, token: torch.Tensor, pos: torch.
 
 
 def logits_lm(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The LM head on final-normed hidden states [B, 1, D] → f32 logits [B, Vpad]."""
+    """The LM head on final-normed hidden states [B, 1, D] → f32 logits [B, Vpad]
+    (plain h beside DTensor parameters is taken as replicated)."""
+    h = replicate_like(h, params["embed"])
     return logits_from_hidden(h, _head(params, cfg), cfg.vocab_size)[:, 0]
 
 
@@ -799,12 +900,15 @@ def prefill_lm(params: dict, tokens: torch.Tensor, cache: dict, cfg: ModelConfig
     reference computes per step."""
     b, s = tokens.shape
     dev = tokens.device
+    const = lambda x: replicate_like(x, params["embed"])  # noqa: E731 — DTensor params
+    tokens = const(tokens)
     full = s  # steps before this one keep every row
     if lengths is not None:
         lengths = torch.as_tensor(lengths, device=dev).reshape(b)
         full = int(lengths.min())
-    h_last = torch.zeros((b, 1, cfg.d_model), dtype=cfg.compute_dtype, device=dev)
-    seen = torch.zeros((b,), dtype=torch.bool, device=dev)
+        lengths = const(lengths)
+    h_last = const(torch.zeros((b, 1, cfg.d_model), dtype=cfg.compute_dtype, device=dev))
+    seen = const(torch.zeros((b,), dtype=torch.bool, device=dev))
     rows = [leaf for name, leaf in cache_leaves(cache) if name not in POOL_LEAVES]
     for t in range(s):
         pos = torch.full((b,), start_pos + t, dtype=torch.long, device=dev)

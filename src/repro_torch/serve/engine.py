@@ -74,6 +74,15 @@ the host once (`host_syncs` counts each device→host copy); the sequential
 loops sync once per prefill and once per `decode_chunk` decode steps; the
 mixed loop once per packed step or decode chunk; a speculative round once.
 
+Sharded serving, as the reference's: `Engine(..., sharding_ctx=ctx)` places
+the parameters by `param_specs` and the contiguous caches by
+`cache_specs_tree`, and runs every step under the context (`_scope`), so a
+cache the kv_cache rule splits by sequence (a batch the batch axes do not
+divide) is read through the cross-rank FLASH-D merge
+(`distributed.context.cp_decode`). `generate` and the contiguous
+sequential loop run so, eagerly; the paged and mixed loops, captured
+graphs, fault injection and speculation on a context raise.
+
 Fault tolerance, as the reference's: every request ends DONE, FAILED
 (retry budget `max_retries` spent) or EXPIRED (deadline). A seeded
 `FaultInjector` (`fault_rate` / `fault_seed`, or `Engine(fault_injector=)`)
@@ -106,6 +115,7 @@ graph it captured; only an `InjectedFault` counts, a real error raises.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import List, Optional, Sequence, Set, Union
@@ -114,6 +124,7 @@ import numpy as np
 import torch
 
 from repro_torch.devices import resolve_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels.ops import plain_impl
 from repro_torch.kernels.tuning import (
     bucket_pow2,
@@ -204,7 +215,17 @@ def sample_token(logits: torch.Tensor, generator: Optional[torch.Generator],
 
 def _slot_view(cache: dict, slot: int) -> dict:
     """Batch-1 view of one slot of a stacked [L, B, ...] cache tree; page
-    pools (no batch axis) are shared whole."""
+    pools (no batch axis) are shared whole. A DTensor leaf must not split
+    its batch over more than one rank: a slice of a split dim would be a
+    copy, and the slot's writes would be lost."""
+    for name, leaf in cache_leaves(cache):
+        if name not in POOL_LEAVES and shd.is_dtensor(leaf) and any(
+                p.is_shard(1) and leaf.device_mesh.size(i) > 1
+                for i, p in enumerate(leaf.placements)):
+            raise NotImplementedError(
+                "a serve slot of a batch-sharded cache: the contiguous serve loop under a "
+                "sharding context needs a max_batch the batch axes do not divide (the kv_cache "
+                "rule then splits the sequence); ROADMAP A13 d")
     return {k: (_slot_view(v, slot) if isinstance(v, dict)
                 else v if k in POOL_LEAVES else v[:, slot:slot + 1])
             for k, v in cache.items()}
@@ -339,14 +360,15 @@ class _PoolCtx:
 class Engine:
     def __init__(self, params: dict, model_cfg: ModelConfig, serve_cfg: ServeConfig,
                  *, device=None, graphs: Optional[bool] = None, draft=None,
-                 fault_injector: Optional[FaultInjector] = None):
+                 fault_injector: Optional[FaultInjector] = None, sharding_ctx=None):
         """`graphs`: replay the steps as captured CUDA graphs (None → on a
         CUDA engine, eager on the CPU; False → eager on the card too, the
         oracle; True on the CPU raises). `draft` (with `spec_tokens` > 0):
         a (params, ModelConfig) pair for a draft model, a `DraftModel`, or a
         host callable fn(rid, tokens, k) → proposals. `fault_injector`:
         the chaos source (default: one of `fault_rate` / `fault_seed` when
-        the rate is above 0, else none)."""
+        the rate is above 0, else none). `sharding_ctx`: a
+        `distributed.sharding.ShardingCtx` to serve on (`_scope`)."""
         if model_cfg.is_encdec:
             raise NotImplementedError(
                 f"{model_cfg.name}: the engine serves decoder-only stacks. The reference's "
@@ -363,11 +385,18 @@ class Engine:
             raise ValueError(
                 f"parameters are on {params['embed'].device}, the engine on {self.device}"
             )
+        self.ctx = sharding_ctx
+        if sharding_ctx is not None:
+            self._check_sharded(serve_cfg, graphs, draft, fault_injector)
+            graphs = False
         self.params = params
         self.mc = model_cfg
         self.sc = serve_cfg
         self.api = get_model(model_cfg)
         self._gen = torch.Generator(device=self.device).manual_seed(serve_cfg.seed)
+        if sharding_ctx is not None:
+            with self._scope():
+                self.params = shd.distribute_tree(params, shd.param_specs(params))
         if graphs is None:
             graphs = self.device.type == "cuda"
         self._steps = StepGraphs(self.device, graphs=graphs, generator=self._gen)
@@ -420,6 +449,43 @@ class Engine:
         self._spec = None
         if serve_cfg.spec_tokens > 0:
             self._spec = self._spec_state(draft)
+
+    def _check_sharded(self, sc: ServeConfig, graphs: Optional[bool], draft, injector) -> None:
+        """What an engine on a sharding context serves: `generate` and the
+        contiguous sequential loop, eagerly. The rest is refused, naming its
+        ROADMAP row."""
+        if sc.kv_layout == "paged" or sc.step_mode == "mixed":
+            raise NotImplementedError("the paged and mixed loops on a sharding context are not "
+                                      "ported (ROADMAP A13 d): use kv_layout='contiguous', "
+                                      "step_mode='sequential'")
+        if draft is not None or sc.spec_tokens > 0 or injector is not None or sc.fault_rate > 0:
+            raise NotImplementedError("speculation and fault injection on a sharding context "
+                                      "are not ported (ROADMAP A13 f)")
+        if graphs:
+            raise NotImplementedError("captured CUDA graphs of sharded steps (NCCL and DTensor "
+                                      "dispatch inside a capture) are not ported (ROADMAP A13 "
+                                      "e): pass graphs=None or False")
+        if self.ctx.mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {self.ctx.mesh.device_type}, the engine on "
+                             f"{self.device}")
+
+    @contextlib.contextmanager
+    def _scope(self):
+        """The scope of every step: inference mode, or under a sharding
+        context that context active with gradients off (a DTensor view
+        cannot be taken in inference mode), so the rules engine and the
+        context-parallel routes see it."""
+        if self.ctx is None:
+            with torch.inference_mode():
+                yield
+        else:
+            with torch.no_grad(), shd.activate(self.ctx):
+                yield
+
+    @staticmethod
+    def _whole(x: torch.Tensor) -> torch.Tensor:
+        """A step's DTensor output (logits, hidden) whole on every rank."""
+        return x.full_tensor() if shd.is_dtensor(x) else x
 
     def _spec_state(self, draft):
         """Validate speculative decoding as the reference does and build its
@@ -716,6 +782,9 @@ class Engine:
         bank = self._contig.get(b)
         if bank is None:
             cache = self.api.init_cache(b, self.sc.max_len, self.mc, device=self.device)
+            if self.ctx is not None:  # the kv_cache rule's placements, sequence split or not
+                with self._scope():
+                    cache = shd.distribute_tree(cache, shd.cache_specs_tree(cache))
             bank = self._contig[b] = _Bank(cache, b, self.device, self.mc,
                                            faults=self._injector is not None)
         return bank
@@ -732,7 +801,7 @@ class Engine:
             for i in range(n):
                 logits, _ = self.api.decode_step(self.params, bank.cache, bank.tok, bank.pos,
                                                  self.mc)
-                out[i].copy_(sample_token(logits, self._gen, self.sc))
+                out[i].copy_(sample_token(self._whole(logits), self._gen, self.sc))
                 bank.tok.copy_(out[i])
                 bank.pos.add_(1)
 
@@ -759,11 +828,12 @@ class Engine:
 
         def position():
             tok = pre.gather(1, pre[:, -1:])[:, 0]
-            h_last.copy_(decode_hidden_lm(self.params, view, tok, pre[:, -2], self.mc))
+            h_last.copy_(self._whole(decode_hidden_lm(self.params, view, tok, pre[:, -2], self.mc)))
             pre[:, -2:].add_(1)
 
         def first():
-            out.copy_(sample_token(logits_lm(self.params, h_last, self.mc), self._gen, self.sc))
+            out.copy_(sample_token(self._whole(logits_lm(self.params, h_last, self.mc)), self._gen,
+                                   self.sc))
 
         for _ in range(n):
             self._steps.run(bank.graphs, ("prefill", slot), position)
@@ -783,7 +853,7 @@ class Engine:
             raise ValueError(f"prompt {s} + {max_new_tokens} exceeds max_len {self.sc.max_len}")
         if max_new_tokens == 0:
             return np.zeros((b, 0), np.int64)
-        with torch.inference_mode():
+        with self._scope():
             bank = self._contiguous(b)
             for _, leaf in cache_leaves(bank.cache):
                 leaf.zero_()
@@ -816,7 +886,7 @@ class Engine:
         layer to page) or the contiguous sequential loop.
         All three give the same tokens under greedy sampling, with the
         prefix cache and preemption on or off."""
-        with torch.inference_mode():
+        with self._scope():
             if self._mixed_ok:
                 return self._serve_mixed(requests, max_new_tokens, priorities, deadlines)
             if self._page_layout is not None and self.sc.kv_layout == "paged":

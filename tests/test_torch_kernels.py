@@ -178,7 +178,7 @@ def test_registry_and_impl_routing():
     assert ops.fallback_impl("fa2_gpu") == "fa2"
     assert ops.fallback_impl("naive") == "naive"
     with pytest.raises(KeyError):
-        ops.get_op("ring_prefill")  # the context-parallel routes: multi-device slice (A13)
+        ops.get_op("ring_prefill")  # a distributed.context route, not a kernel op (as the reference)
     x = torch.zeros(1)
     for family in ("flashd", "fa2"):
         assert not tatt.uses_kernel(family, x)  # CPU tensor: plain path
